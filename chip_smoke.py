@@ -3,26 +3,38 @@
 
 Drives the port's main path — self-supervised training steps of the full
 ResNet-18 model at 416×128, grayscale, batch 4 (the reference configuration
-of bench.py) — through the hand-written CUDA grid-sample kernels, and checks
-each kernel against its plain PyTorch version on the card. Phases, each
-printing one flushed JSON line with its wall time:
+of bench.py) — through the hand-written CUDA grid-sample kernels, and the
+port's measurement entry points, one of which (the warp-kernel bench) is the
+path that runs the image VJP. Checks each kernel against its plain PyTorch
+version on the card. Phases, each printing one flushed JSON line with its
+wall time:
 
   env      the card (nvidia-smi name and power limit), torch and CUDA versions
   build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu for sm_90a
-  kernels  both kernels against their plain versions at the main-path shape
-           (32 images of 128×416, C = 1) and at C = 3, on uv with interior,
-           exact-border and out-of-range points: forward within 1e-6 abs,
-           d_uv within 1e-4 abs + 1e-5 rel (tests/test_pallas_kernel.py's)
+  kernels  the three kernels against their plain versions at the main-path
+           shape (32 images of 128×416) for C = 1 and 3, on scattered and
+           near-identity uv with exact-border and out-of-range points:
+           forward within 1e-6 abs, d_uv within 1e-4 abs + 1e-5 rel
+           (tests/test_pallas_kernel.py's), d_img per pixel within
+           1e-5·Σ_p|g·w| + 1e-6 (atomics add in no fixed order)
+  autograd grid_sample with image and uv requiring grad, through K1, K2, K3,
+           against the plain op; each kernel launched exactly once
   slice    3 fp32 train steps (TF32 off) through the kernels, the launch
-           counters reset just before and read just after; beside each, a
-           step from the same state through the plain grid sample: losses
-           agree to 1e-4 rel, all parameter grads to 1e-4 relative L2. Then
-           bf16-network steps, timed over two windows after warm-up
+           counters reset just before and read just after: 3 × K1, 3 × K2,
+           0 × K3 (source frames are data). Beside each, a step from the same
+           state through the plain grid sample: losses agree to 1e-4 rel, all
+           parameter grads to 1e-2 relative L2
   reference  the simple_depth fit through the kernels against the committed
            golden trajectory tests/golden/simple_depth_golden.npz
+  warp_bench  python -m monodepth2_torch.tools.warp_kernel_bench, in process
+           and shortened; its counts must show K1, K2 and K3 launched
+  bench    python -m monodepth2_torch.bench (bf16 network), shortened; K1 and
+           K2 launched, K3 not
+  breakdown  python -m monodepth2_torch.tools.profile_breakdown, shortened
   times    per kernel at the main-path shape: kernel, plain and library
-           (F.grid_sample) times with the L2 flushed before each launch, and
-           the bound from the bytes and operations of this run's inputs
+           (F.grid_sample, aten.grid_sampler_2d_backward) times with the L2
+           flushed before each launch, and the bound from the bytes and
+           operations of this run's inputs
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
@@ -34,7 +46,6 @@ from __future__ import annotations
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -44,12 +55,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # main-path shape: Src·S·N = 2 sources × 4 scales × batch 4 warped images
 WIDTH, HEIGHT, BATCH = 416, 128, 4
 N_WARP = 2 * 4 * BATCH
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 # fp32 operations per point, counted from the formula: coordinates (scale,
 # clamp, floor, weights) once per point; the 4-tap lerp per channel; the
-# backward adds the two slopes and the g-weighted sums
+# coordinate VJP adds the two slopes and the g-weighted sums; the image VJP
+# forms the 4 tap weights once (6) and per channel 4 products and 4 adds
 OPS_COORDS, OPS_FWD_CH, OPS_BWD_CH = 14, 11, 22
+OPS_IMG_WEIGHTS, OPS_BWD_IMG_CH = 6, 8
 TPU_KERNELS = "monodepth2_tpu/ops/pallas/grid_sample_kernel.py"
 
 
@@ -60,14 +71,6 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_uv(torch, n, h, w, generator, scattered: bool):
@@ -91,37 +94,43 @@ def make_uv(torch, n, h, w, generator, scattered: bool):
     return uv.contiguous()
 
 
+def dimg_excess(GS, img, uv, g, d_img):
+    """Largest excess of |d_img − plain| over K3's tolerance 1e-5·Σ_p|g·w| +
+    1e-6 per pixel (the plain version run on |g|: the weights are
+    non-negative); <= 0 passes. Atomics add in no fixed order, and a border
+    pixel can collect thousands of terms, so a bare absolute tolerance would
+    not do."""
+    plain = GS.grid_sample_bwd_img_plain(img, uv, g)
+    scale = GS.grid_sample_bwd_img_plain(img, uv, g.abs())
+    return float(((d_img - plain).abs() - (1e-5 * scale + 1e-6)).max()), float((d_img - plain).abs().max())
+
+
 def compare_kernels(torch, GS, img, uv, g):
-    """Max abs errors of both kernels against their plain versions."""
+    """Max abs errors of the three kernels against their plain versions."""
     out_k = GS.grid_sample_fwd(img, uv)
     duv_k = GS.grid_sample_bwd_uv(img, uv, g)
+    dimg_k = GS.grid_sample_bwd_img(img, uv, g)
     out_p = GS.grid_sample_fwd_plain(img, uv)
     duv_p = GS.grid_sample_bwd_uv_plain(img, uv, g)
     torch.cuda.synchronize()
     fwd_err = float((out_k - out_p).abs().max())
     bwd_err = float((duv_k - duv_p).abs().max())
-    check(bool(torch.isfinite(out_k).all()) and bool(torch.isfinite(duv_k).all()), "non-finite kernel output")
+    check(all(bool(torch.isfinite(t).all()) for t in (out_k, duv_k, dimg_k)), "non-finite kernel output")
     check(fwd_err <= 1e-6, f"grid_sample_fwd disagrees with plain: {fwd_err}")
     excess = float(((duv_k - duv_p).abs() - (1e-4 + 1e-5 * duv_p.abs())).max())
     check(excess <= 0, f"grid_sample_bwd_uv disagrees with plain: max err {bwd_err}")
-    return fwd_err, bwd_err
+    img_excess, img_err = dimg_excess(GS, img, uv, g, dimg_k)
+    check(img_excess <= 0, f"grid_sample_bwd_img disagrees with plain: max err {img_err}, excess {img_excess}")
+    return fwd_err, bwd_err, img_err
 
 
-def time_cold(torch, fn, reps: int = 50) -> float:
-    """Mean ms of fn() on the card, the 50 MB L2 flushed before each call."""
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+def reset(GS):
+    for k in GS.KERNELS:
+        k.launches = 0
+
+
+def counts(GS):
+    return {k.name: k.launches for k in GS.KERNELS}
 
 
 def main() -> int:
@@ -136,12 +145,17 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from monodepth2_torch import bench
+    from monodepth2_torch.device import H100_BYTES_PER_S, H100_FP32_FLOPS, nvidia_smi
     from monodepth2_torch.models import Model
     from monodepth2_torch.ops.cuda import _lib
     from monodepth2_torch.simple_depth import fit_simple_depth
+    from monodepth2_torch.tools import profile_breakdown, warp_kernel_bench
     from monodepth2_torch.training import TrainConfig, TrainContext, create_train_state, make_train_step
+    from monodepth2_torch.utils.profiler import time_ms
 
     GS = importlib.import_module("monodepth2_torch.ops.grid_sample")
+    dev = torch.device("cuda")
 
     # ---- env
     smi = nvidia_smi()
@@ -165,11 +179,33 @@ def main() -> int:
         g = torch.randn((N_WARP, P, c), generator=gen).cuda()
         for scattered in (True, False):
             uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered).cuda()
-            fe, be = compare_kernels(torch, GS, img, uv, g)
-            errs[(c, scattered)] = (fe, be)
+            errs[(c, scattered)] = compare_kernels(torch, GS, img, uv, g)
+            fe, be, ie = errs[(c, scattered)]
             emit("kernels", C=c, uv="scattered" if scattered else "near-identity",
                  shape=[N_WARP, HEIGHT, WIDTH, c], fwd_max_abs_err=fe, bwd_uv_max_abs_err=be,
-                 launches={k.name: k.launches for k in GS.KERNELS})
+                 bwd_img_max_abs_err=ie, launches=counts(GS))
+
+    # ---- autograd: the op with both gradients, through all three kernels
+    img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
+    uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
+    g = torch.randn((N_WARP, P, 1), generator=gen).cuda()
+    grads = {}
+    reset(GS)
+    for method in (None, "gather"):
+        i, u = img.clone().requires_grad_(), uv.clone().requires_grad_()
+        GS.grid_sample(i, u, method=method).backward(g)
+        grads[method] = (i.grad, u.grad)
+    torch.cuda.synchronize()
+    launches = counts(GS)
+    check(all(n == 1 for n in launches.values()), f"autograd launches {launches}, want 1 of each kernel")
+    img_excess, img_err = dimg_excess(GS, img, uv, g, grads[None][0])
+    check(img_excess <= 0, f"autograd d_img disagrees with the plain op: max err {img_err}")
+    duv_k, duv_p = grads[None][1], grads["gather"][1]
+    uv_err = float((duv_k - duv_p).abs().max())
+    check(float(((duv_k - duv_p).abs() - (1e-4 + 1e-5 * duv_p.abs())).max()) <= 0,
+          f"autograd d_uv disagrees with the plain op: max err {uv_err}")
+    emit("autograd", shape=[N_WARP, HEIGHT, WIDTH, 1], d_img_max_abs_err=img_err, d_uv_max_abs_err=uv_err,
+         launches=launches)
 
     # ---- slice: the main path
     torch.backends.cudnn.allow_tf32 = False
@@ -187,8 +223,7 @@ def main() -> int:
     step, plain_step = make_train_step(ctx, cfg), make_train_step(ctx, plain_cfg)
     losses, plain_losses, mean_disps, grad_diffs, worst = [], [], [], [], []
 
-    for k in GS.KERNELS:
-        k.launches = 0
+    reset(GS)
     for _ in range(3):
         # each plain step starts from the kernel path's state before the step:
         # two free-running Adam trajectories from random init drift apart by
@@ -213,9 +248,11 @@ def main() -> int:
             (float((a - b).norm() / b.norm()), name_p) for name_p, a, b in grads if float(b.norm()) > 0
         ))
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in GS.KERNELS}
-    for name_k, n in launches.items():
-        check(n == 3, f"{name_k} launched {n} times in 3 main-path steps, want 3")
+    slice_launches = counts(GS)
+    # training launches the forward and the coordinate VJP once a step, and
+    # never the image VJP: source frames are data, not parameters
+    want = {GS.grid_sample_fwd.name: 3, GS.grid_sample_bwd_uv.name: 3, GS.grid_sample_bwd_img.name: 0}
+    check(slice_launches == want, f"launches in 3 main-path steps {slice_launches}, want {want}")
     check(all(np.isfinite(losses)) and all(np.isfinite(mean_disps)), f"non-finite metrics {losses} {mean_disps}")
     check(tuple(aux["disparity"].shape) == (BATCH, HEIGHT, WIDTH, 1), "disparity shape")
     check(all(tuple(w.shape) == (BATCH, HEIGHT, WIDTH, 1) for w in aux["warped"]), "warped shape")
@@ -229,7 +266,7 @@ def main() -> int:
     emit("slice", config=f"ResNet-18 {WIDTH}x{HEIGHT} gray batch {BATCH} fp32, TF32 off", losses=losses,
          plain_losses=plain_losses, max_rel_loss_diff=rel, grad_rel_l2_diff=grad_diffs,
          worst_param_grad_rel_l2_diff=worst,
-         mean_disparity=mean_disps, launches=launches)
+         mean_disparity=mean_disps, launches=slice_launches)
 
     # ---- reference: the simple_depth fit through the kernels against the
     # committed golden trajectory (an independent PyTorch loop), with the
@@ -245,45 +282,73 @@ def main() -> int:
     emit("reference", fit="simple_depth 96x32, 500 iterations", first_rel=fit_rel[0], max_rel=max(fit_rel),
          last_rel=fit_rel[-1], mean_disparity_diff=disp_diff, fit_s=round(time.perf_counter() - t, 3))
 
-    # bf16 network, fp32 geometry and loss, as bench.py trains
+    # ---- the measurement entry points, in process and shortened, with the
+    # settings a user's run has (cuDNN free to choose, TF32 convs)
+    torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    cfg16 = replace(cfg, compute_dtype="bfloat16")
-    state = create_train_state(Model.create(depth=18, in_channels=1, device="cuda"), cfg16)
-    step = make_train_step(ctx, cfg16)
-    for _ in range(3):  # warm-up, cuDNN autotuning included
-        state, metrics, _ = step(state, frames)
-    windows = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(3):
-            state, metrics, _ = step(state, frames)
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t) / 3 * 1e3)
-    check(np.isfinite(metrics["loss"].item()), "non-finite bf16 loss")
-    emit("slice_bf16", ms_per_step_windows=windows, ms_per_step=min(windows),
-         img_per_s=BATCH / (min(windows) / 1e3), loss=metrics["loss"].item(), power_limit=smi)
 
-    # ---- times at the main-path shape (C = 1, near-identity uv)
+    # warp_bench: the path that runs the image VJP
+    reset(GS)
+    warp = warp_kernel_bench.main(["--iters", "10"])
+    torch.cuda.synchronize()
+    warp_launches = counts(GS)
+    check(all(n > 0 for n in warp_launches.values()), f"warp bench launches {warp_launches}: a kernel never ran")
+    check(all(np.isfinite(r["fwd_bwd_ms"]) for r in warp["rows"]), "non-finite warp bench times")
+    emit("warp_bench", launches=warp_launches, **{r["method"]: {k: v for k, v in r.items() if k != "method"}
+                                                    for r in warp["rows"]})
+
+    # bench: the bf16 training step, as users train
+    reset(GS)
+    result = bench.main(["--warmup", "3", "--steps", "10"])
+    bench_launches = counts(GS)
+    check(bench_launches[GS.grid_sample_bwd_img.name] == 0 and
+          bench_launches[GS.grid_sample_fwd.name] > 0 and bench_launches[GS.grid_sample_bwd_uv.name] > 0,
+          f"bench launches {bench_launches}: want K1 and K2, and no K3")
+    check(np.isfinite(result["value"]) and np.isfinite(result["loss"]), f"bench result {result}")
+    emit("bench", launches=bench_launches, img_per_s=result["value"], ms_per_step=result["ms_per_step"],
+         ms_per_step_windows=result["ms_per_step_windows"], mfu_pct=result["mfu_pct"],
+         step_gflops=result["step_gflops"], power_limit=smi)
+
+    # breakdown: per-block times and the device's idle share in a step
+    breakdown = profile_breakdown.main(["--iters", "10", "--idle-steps", "5"])
+    check(0 <= breakdown["full_step_idle_share"] < 1, f"idle share {breakdown['full_step_idle_share']}")
+    emit("breakdown", blocks={k: v["ms"] for k, v in breakdown["blocks"].items()},
+         derived=breakdown["derived"], full_step_idle_share=breakdown["full_step_idle_share"],
+         **{k: breakdown["idle_window"][k] for k in
+            ("idle_share", "busy_ms_per_step", "window_ms_per_step", "device_activities_per_step")})
+
+    # ---- times at the main-path shape (C = 1, near-identity uv; the image
+    # VJP also on scattered uv, whose clamped points pile onto border pixels)
     img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
     uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
+    uv_scattered = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=True).cuda()
     g = torch.randn((N_WARP, P, 1), generator=gen).cuda()
     img_nchw, grid = img.permute(0, 3, 1, 2), uv.reshape(N_WARP, 1, P, 2)
     g_nchw = g.reshape(N_WARP, 1, 1, P)
+
+    def library_dimg(grid):
+        # interpolation 0 = bilinear, padding 1 = border, align_corners True;
+        # output mask [True, False]: d_img only
+        return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, [True, False])[0]
+
+    # the library's d_img has the port's weights and clamped taps: hold it to
+    # K3's tolerance, so that its time is a yardstick of the same function
+    lib_excess, lib_err = dimg_excess(GS, img, uv, g, library_dimg(grid).permute(0, 2, 3, 1))
+    check(lib_excess <= 0, f"library d_img differs from plain: max err {lib_err}")
     f32 = 4
     n_pts = N_WARP * P
-    max_errs = (max(e[0] for e in errs.values()), max(e[1] for e in errs.values()))
+    max_errs = [max(e[i] for e in errs.values()) for i in range(3)]
+    nbytes = warp_kernel_bench.kernel_bytes(N_WARP, HEIGHT, WIDTH, 1)
     kernels = []
-    for k, err, kernel, plain_fn, library, nbytes, ops, lines in (
+    for k, err, kernel, plain_fn, library, ops, lines, launches in (
         (
             GS.grid_sample_fwd, max_errs[0],
             lambda: GS.grid_sample_fwd(img, uv),
             lambda: GS.grid_sample_fwd_plain(img, uv),
             lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True),
-            f32 * (img.numel() + uv.numel() + n_pts),
             n_pts * (OPS_COORDS + OPS_FWD_CH),
             (116, 175),  # _fwd_kernel, _fwd_kernel_colband
+            slice_launches,
         ),
         (
             GS.grid_sample_bwd_uv, max_errs[1],
@@ -291,23 +356,45 @@ def main() -> int:
             lambda: GS.grid_sample_bwd_uv_plain(img, uv, g),
             # the same VJP, but torch counts border samples as outside
             lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, [False, True]),
-            f32 * (img.numel() + uv.numel() + g.numel() + 2 * n_pts),
             n_pts * (OPS_COORDS + OPS_BWD_CH),
             (124, 186),  # _bwd_duv_kernel, _bwd_duv_kernel_colband
+            slice_launches,
+        ),
+        (
+            GS.grid_sample_bwd_img, max_errs[2],
+            # timed with the wrapper's zero fill of d_img, as callers get it
+            lambda: GS.grid_sample_bwd_img(img, uv, g),
+            lambda: GS.grid_sample_bwd_img_plain(img, uv, g),
+            lambda: library_dimg(grid),
+            n_pts * (OPS_COORDS + OPS_IMG_WEIGHTS + OPS_BWD_IMG_CH),
+            (154, 214),  # _bwd_dimg_kernel, _bwd_dimg_kernel_colband
+            # its path is the warp bench's forward + VJP; training runs it 0 times
+            warp_launches,
         ),
     ):
-        bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        bound_bytes = nbytes[k.name] / H100_BYTES_PER_S * 1e3
         bound_ops = ops / H100_FP32_FLOPS * 1e3
-        ms = time_cold(torch, kernel)
-        kernels.append(dict(
+        ms = time_ms(kernel, dev, 50, flush_l2=True)
+        row = dict(
             name=k.name, route="cuda", source="monodepth2_torch/ops/cuda/grid_sample.cu",
             replaces=f"{TPU_KERNELS}:{lines[0]}", also_replaces=f"{TPU_KERNELS}:{lines[1]}",
-            launches=launches[k.name], max_abs_err=err, ms=ms, kernel_ms=ms,
-            plain_ms=time_cold(torch, plain_fn), bound_ms=max(bound_bytes, bound_ops),
+            launches=launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
+            max_abs_err=err, ms=ms, kernel_ms=ms,
+            plain_ms=time_ms(plain_fn, dev, 50, flush_l2=True), bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=time_cold(torch, library), bytes=nbytes, operations=ops,
-            shape=[N_WARP, HEIGHT, WIDTH, 1],
-        ))
+            library_ms=time_ms(library, dev, 50, flush_l2=True), bytes=nbytes[k.name], operations=ops,
+            shape=[N_WARP, HEIGHT, WIDTH, 1], uv="near-identity",
+        )
+        if k is GS.grid_sample_bwd_img:
+            row.update(
+                ms_scattered=time_ms(lambda: GS.grid_sample_bwd_img(img, uv_scattered, g), dev, 50, flush_l2=True),
+                library_ms_scattered=time_ms(
+                    lambda: library_dimg(uv_scattered.reshape(N_WARP, 1, P, 2)), dev, 50, flush_l2=True
+                ),
+                zero_fill_bytes=f32 * img.numel(),
+                library_max_abs_err=lib_err,
+            )
+        kernels.append(row)
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

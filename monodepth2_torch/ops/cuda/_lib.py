@@ -88,6 +88,8 @@ def load() -> ctypes.CDLL:
             lib.grid_sample_fwd.restype = i32
             lib.grid_sample_bwd_uv.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.grid_sample_bwd_uv.restype = i32
+            lib.grid_sample_bwd_img.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.grid_sample_bwd_img.restype = i32
             lib.grid_sample_error_string.argtypes = [i32]
             lib.grid_sample_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -5,18 +5,18 @@ monodepth2_tpu/ops/pallas/grid_sample_kernel.py. Same API: NHWC image,
 uv (N,P,2) in (-1,1) with align-corners normalization, out (N,P,C);
 out-of-range samples clamp to the border.
 
-Two hand-written CUDA kernels (ops/cuda/grid_sample.cu) carry the op on the
-card, each behind a wrapper that counts its launches, with its plain PyTorch
-version beside it:
+Three hand-written CUDA kernels (ops/cuda/grid_sample.cu) carry the op on
+the card, each behind a wrapper that counts its launches, with its plain
+PyTorch version beside it:
 
-  grid_sample_fwd     K1: replaces _fwd_kernel / _fwd_kernel_colband
-  grid_sample_bwd_uv  K2: replaces _bwd_duv_kernel / _bwd_duv_kernel_colband
+  grid_sample_fwd      K1: replaces _fwd_kernel / _fwd_kernel_colband
+  grid_sample_bwd_uv   K2: replaces _bwd_duv_kernel / _bwd_duv_kernel_colband
+  grid_sample_bwd_img  K3: replaces _bwd_dimg_kernel / _bwd_dimg_kernel_colband
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches the kernel or raises — it never falls back. The image gradient (K3,
-_bwd_dimg_kernel / _bwd_dimg_kernel_colband) is not ported: source frames are
-data in training, so the CUDA path raises NotImplementedError when the image
-requires grad; the plain version computes it on the CPU.
+launches the kernel or raises — it never falls back. The backward launches
+K3 only when the image requires grad: source frames are data in training, so
+a training step launches K1 and K2 only.
 
 The coordinate gradient follows the Pallas border rule, which training on the
 TPU used: a sample exactly on the border counts as inside (`inside_u`,
@@ -102,8 +102,8 @@ def grid_sample_bwd_uv_plain(image: Tensor, uv: Tensor, g: Tensor) -> Tensor:
 
 
 def grid_sample_bwd_img_plain(image: Tensor, uv: Tensor, g: Tensor) -> Tensor:
-    """The image VJP (Pallas K3, not ported to CUDA): scatter-add of the 4
-    weighted taps. g (N,P,C) -> d_image (N,H,W,C)."""
+    """Plain version of K3, the image VJP: scatter-add of the 4 weighted taps.
+    g (N,P,C) -> d_image (N,H,W,C)."""
     n, h, w, c = image.shape
     x0i, x1i, y0i, y1i, wx, wy, _, _ = _coords(h, w, uv)
     flat = torch.zeros((n, h * w, c), dtype=g.dtype, device=g.device)
@@ -196,9 +196,34 @@ class GridSampleBwdUV(_Kernel):
         return duv
 
 
+class GridSampleBwdImg(_Kernel):
+    """K3 wrapper: image (read for its shape only), uv and g (N,P,C) ->
+    d_image (N,H,W,C). Zeroes the fp32 output on the launch's stream; the
+    kernel adds into it with atomics, so the sum's last bits vary between
+    runs."""
+
+    name = "grid_sample_bwd_img"
+
+    def __call__(self, image: Tensor, uv: Tensor, g: Tensor) -> Tensor:
+        if not image.is_cuda:
+            return grid_sample_bwd_img_plain(image, uv, g)
+        _check_cuda(self.name, image, uv, g)
+        n, h, w, c = image.shape
+        p = uv.shape[1]
+        if g.shape != (n, p, c):
+            raise ValueError(f"{self.name}: g must be {(n, p, c)}, got {tuple(g.shape)}")
+        # the fill runs on the current stream of image.device, where _launch
+        # enqueues the kernel after it
+        dimg = torch.zeros((n, h, w, c), dtype=torch.float32, device=image.device)
+        if n * p * c:
+            self._launch(self.name, uv, g, dimg, n, h, w, c, p)
+        return dimg
+
+
 grid_sample_fwd = GridSampleFwd()
 grid_sample_bwd_uv = GridSampleBwdUV()
-KERNELS = (grid_sample_fwd, grid_sample_bwd_uv)
+grid_sample_bwd_img = GridSampleBwdImg()
+KERNELS = (grid_sample_fwd, grid_sample_bwd_uv, grid_sample_bwd_img)
 
 # ---------------------------------------------------------------- the op
 
@@ -218,7 +243,8 @@ class _GridSample(torch.autograd.Function):
         g = g.contiguous()
         d_image = d_uv = None
         if ctx.needs_input_grad[0]:
-            d_image = grid_sample_bwd_img_plain(image, uv, g)
+            bwd = grid_sample_bwd_img_plain if ctx.plain else grid_sample_bwd_img
+            d_image = bwd(image, uv, g)
         if ctx.needs_input_grad[1]:
             bwd = grid_sample_bwd_uv_plain if ctx.plain else grid_sample_bwd_uv
             d_uv = bwd(image, uv, g)
@@ -237,10 +263,4 @@ def grid_sample(image: Tensor, uv: Tensor, method: Optional[str] = None) -> Tens
         raise ValueError(
             f"unknown grid_sample method {method!r} (the one-hot formulation is TPU-only)"
         )
-    plain = method == "gather"
-    if image.is_cuda and not plain and image.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the image gradient of the CUDA grid sample (Pallas K3, _bwd_dimg_kernel) "
-            "is not ported; pass method='gather' or detach the image"
-        )
-    return _GridSample.apply(image, uv, plain)
+    return _GridSample.apply(image, uv, method == "gather")

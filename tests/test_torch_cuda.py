@@ -34,7 +34,17 @@ def _case(dev, n, h, w, c, seed=0):
     return img.to(dev), uv.to(dev), g.to(dev)
 
 
-@pytest.mark.parametrize("shape", [(2, 12, 20, 1), (2, 12, 20, 3), (32, 128, 416, 1)])
+def _assert_dimg_close(img, uv, g, d_img):
+    """K3's tolerance: atomics sum in no fixed order, so each pixel may differ
+    from the plain sum by 1e-5 of the sum of its terms' magnitudes, Σ_p |g·w|
+    (the plain version run on |g|: the weights are non-negative), + 1e-6."""
+    plain = GS.grid_sample_bwd_img_plain(img, uv, g)
+    scale = GS.grid_sample_bwd_img_plain(img, uv, g.abs())
+    excess = (d_img - plain).abs() - (1e-5 * scale + 1e-6)
+    assert float(excess.max()) <= 0, float((d_img - plain).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 20, 1), (2, 12, 20, 3), (32, 128, 416, 1), (32, 128, 416, 3)])
 def test_kernels_match_plain(dev, shape):
     img, uv, g = _case(dev, *shape)
     before = [k.launches for k in GS.KERNELS]
@@ -42,18 +52,42 @@ def test_kernels_match_plain(dev, shape):
     torch.testing.assert_close(
         GS.grid_sample_bwd_uv(img, uv, g), GS.grid_sample_bwd_uv_plain(img, uv, g), rtol=1e-5, atol=1e-4
     )
+    _assert_dimg_close(img, uv, g, GS.grid_sample_bwd_img(img, uv, g))
     torch.cuda.synchronize()
     assert [k.launches for k in GS.KERNELS] == [n + 1 for n in before]
 
 
+def test_image_gradient_clamped_taps_add_both_weights(dev):
+    """At the right and bottom borders x1 = x0 and y1 = y0: both weights of a
+    clamped tap pair land on one pixel, as in the plain scatter."""
+    img = torch.rand((1, 4, 5, 2), device=dev)
+    uv = torch.tensor([[[1.0, 1.0], [1.0, -0.3], [0.2, 1.0], [1.7, 2.0]]], device=dev)
+    g = torch.tensor([[[1.0, 2.0], [3.0, -1.0], [0.5, 0.25], [2.0, 4.0]]], device=dev)
+    d_img = GS.grid_sample_bwd_img(img, uv, g)
+    _assert_dimg_close(img, uv, g, d_img)
+    torch.testing.assert_close(d_img.sum(dim=(1, 2)), g.sum(dim=1), rtol=0, atol=1e-6)
+
+
 def test_autograd_through_kernels_matches_plain(dev):
-    img, uv, g = _case(dev, 2, 16, 24, 1)
+    img, uv, g = _case(dev, 2, 16, 24, 3)
     grads = []
+    before = [k.launches for k in GS.KERNELS]
     for method in (None, "gather"):
-        u = uv.clone().requires_grad_()
-        GS.grid_sample(img, u, method=method).backward(g)
-        grads.append(u.grad)
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-4)
+        i, u = img.clone().requires_grad_(), uv.clone().requires_grad_()
+        GS.grid_sample(i, u, method=method).backward(g)
+        grads.append((i.grad, u.grad))
+    torch.cuda.synchronize()
+    assert [k.launches for k in GS.KERNELS] == [n + 1 for n in before]
+    _assert_dimg_close(img, uv, g, grads[0][0])
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-5, atol=1e-4)
+
+
+def test_uv_only_gradient_launches_no_image_vjp(dev):
+    img, uv, g = _case(dev, 2, 16, 24, 1)
+    before = GS.grid_sample_bwd_img.launches
+    u = uv.clone().requires_grad_()
+    GS.grid_sample(img, u).backward(g)
+    assert GS.grid_sample_bwd_img.launches == before
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -66,9 +100,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         GS.grid_sample_fwd(img, uv[:1])
     with pytest.raises(ValueError):
         GS.grid_sample_bwd_uv(img, uv, g[:, :-1])
-
-
-def test_image_gradient_raises_naming_k3(dev):
-    img, uv, _ = _case(dev, 2, 8, 8, 1)
-    with pytest.raises(NotImplementedError, match="K3"):
-        GS.grid_sample(img.requires_grad_(), uv)
+    with pytest.raises(ValueError):
+        GS.grid_sample_bwd_img(img, uv, g[:, :-1])
+    with pytest.raises(TypeError):
+        GS.grid_sample_bwd_img(img, uv, g.double())
+    with pytest.raises(ValueError):
+        GS.grid_sample_bwd_img(img, uv.cpu(), g)

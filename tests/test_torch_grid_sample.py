@@ -83,7 +83,8 @@ def test_matches_pallas_with_border_points(c):
 
 def test_matches_pallas_column_banded_full_grid():
     """A full H×W grid wider than 128 columns takes the Pallas column-band
-    kernels (K1b, K2b), the training default."""
+    kernels (K1b, K2b, K3b with its fold of overlapping windows), the
+    training default."""
     h, w = 8, 160
     img, _, g = _case(6, 1, h, w, 1, h * w, -1, 1)
     ys, xs = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
@@ -91,10 +92,11 @@ def test_matches_pallas_column_banded_full_grid():
     uv = (np.stack([xs, ys], -1).reshape(1, h * w, 2) + shift).astype(np.float32)
     uv[0, 0] = (-1.0, -1.0)
     pallas = lambda i, u: grid_sample_pallas(i, u, precise=True, interpret=True)
-    out_j, _, duv_j = _jax_vjp(pallas, img, uv, g)
-    out_t, _, duv_t = _torch_vjp(img, uv, g, image_grad=False)
+    out_j, dimg_j, duv_j = _jax_vjp(pallas, img, uv, g)
+    out_t, dimg_t, duv_t = _torch_vjp(img, uv, g)
     np.testing.assert_allclose(out_t, out_j, atol=1e-6)
     np.testing.assert_allclose(duv_t, duv_j, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(dimg_t, dimg_j, atol=1e-5)
 
 
 def test_border_rule_pins_pallas_not_gather():
@@ -125,6 +127,12 @@ def test_wrappers_on_cpu_use_plain_and_count_no_launch():
         GS.grid_sample_bwd_uv_plain(img_t, uv_t, g_t),
         rtol=0, atol=0,
     )
+    torch.testing.assert_close(
+        GS.grid_sample_bwd_img(img_t, uv_t, g_t),
+        GS.grid_sample_bwd_img_plain(img_t, uv_t, g_t),
+        rtol=0, atol=0,
+    )
+    assert len(GS.KERNELS) == 3
     assert [k.launches for k in GS.KERNELS] == before
 
 

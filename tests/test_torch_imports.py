@@ -36,10 +36,14 @@ def test_port_imports_without_jax():
         import chip_smoke
         loaded = [n for n in sys.modules if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None]
         assert not loaded, loaded
+        measuring = {{"monodepth2_torch.bench", "monodepth2_torch.utils", "monodepth2_torch.utils.profiler",
+                     "monodepth2_torch.tools", "monodepth2_torch.tools.warp_kernel_bench",
+                     "monodepth2_torch.tools.profile_breakdown"}}
+        assert measuring <= set(names), measuring - set(names)
         print(len(names), "modules")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 21
 
 
 def test_entry_points_refuse_missing_cuda():

@@ -1,0 +1,155 @@
+"""The port's measurement entry points — monodepth2_torch.bench,
+tools.warp_kernel_bench and tools.profile_breakdown — at a tiny size on the
+CPU (64×32 frames, batch 1, 2 warped images, 1-2 iterations), and
+monodepth2_torch.utils.profiler against the JAX package's. On the CPU the
+entry points report host-clock times and no device metric (roofline, MFU,
+idle share are None); on a machine with no card they refuse to run unless
+asked for the CPU."""
+
+import json
+import math
+import time
+
+import pytest
+import torch
+
+from monodepth2_torch import bench
+from monodepth2_torch.tools import profile_breakdown, warp_kernel_bench
+from monodepth2_torch.utils import profiler
+from monodepth2_tpu.utils import profiler as jax_profiler
+
+TINY = ["--device", "cpu", "--width", "64", "--height", "32", "--batch-size", "1"]
+KERNEL_NAMES = ("grid_sample_fwd", "grid_sample_bwd_uv", "grid_sample_bwd_img")
+
+
+def _printed(capsys):
+    return [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+
+
+def _assert_finite(record, keys):
+    for key in keys:
+        assert isinstance(record[key], (int, float)) and math.isfinite(record[key]), (key, record[key])
+
+
+def test_bench_on_cpu(capsys):
+    out = bench.main(TINY + ["--warmup", "1", "--steps", "1"])
+    assert _printed(capsys) == [out]
+    _assert_finite(out, ("value", "ms_per_step", "step_gflops", "loss"))
+    assert out["metric"] == "kitti_64x32_train_images_per_sec_per_chip"
+    assert out["unit"] == "img/s" and out["steps_per_call"] == 1
+    assert out["value"] == pytest.approx(1 / (out["ms_per_step"] / 1e3))
+    assert out["ms_per_step"] == min(out["ms_per_step_windows"]) and len(out["ms_per_step_windows"]) == 2
+    assert out["step_gflops"] > 0
+    assert (out["device"], out["nvidia_smi"], out["mfu_pct"]) == ("cpu", None, None)
+
+
+def test_warp_kernel_bench_on_cpu(capsys):
+    GS = warp_kernel_bench.GS
+    before = [k.launches for k in GS.KERNELS]
+    out = warp_kernel_bench.main(["--device", "cpu", "--n", "2", "--height", "32", "--width", "64", "--iters", "2"])
+    printed = _printed(capsys)
+    assert printed[:-1] == out["rows"]
+    assert [r["method"] for r in out["rows"]] == ["cuda", "plain", "library"]
+    for row in out["rows"]:
+        _assert_finite(row, ("fwd_ms", "fwd_bwd_ms", "fwd_ms_warm", "fwd_bwd_ms_warm"))
+        assert row["fwd_pct_hbm_roofline"] is None and row["fwd_bwd_pct_hbm_roofline"] is None
+    assert set(out["rows"][0]["kernel_ms"]) == set(KERNEL_NAMES)
+    for times in out["rows"][0]["kernel_ms"].values():
+        _assert_finite(times, ("cold", "warm"))
+    summary = printed[-1]
+    assert summary["shape"] == {"N": 2, "H": 32, "W": 64, "C": 1, "P": 2048}
+    assert summary["bytes"] == warp_kernel_bench.kernel_bytes(2, 32, 64, 1)
+    assert (summary["device"], summary["nvidia_smi"]) == ("cpu", None)
+    # CPU tensors take the plain versions: no kernel was launched
+    assert [k.launches for k in GS.KERNELS] == before
+
+
+def test_warp_kernel_bench_bytes_at_training_shape():
+    """fp32 bytes each function must move at N = 32 images of 128×416, one
+    point a pixel: uv 13.6 MB, image / out / g / d_img 6.8 MB each."""
+    img, uv, val = 32 * 128 * 416, 32 * 53_248 * 2, 32 * 53_248
+    b = warp_kernel_bench.kernel_bytes(32, 128, 416, 1)
+    assert b["grid_sample_fwd"] == 4 * (img + uv + val) == 27_262_976
+    assert b["grid_sample_bwd_uv"] == 4 * (img + uv + val + uv) == 40_894_464
+    assert b["grid_sample_bwd_img"] == 4 * (uv + val + img) == 27_262_976
+    assert b["fwd"] == b["grid_sample_fwd"]
+    assert b["fwd_bwd"] == 4 * (2 * img + 2 * uv + 2 * val) == 54_525_952
+    b3 = warp_kernel_bench.kernel_bytes(32, 128, 416, 3)
+    assert b3["grid_sample_bwd_img"] == 4 * (uv + 3 * val + 3 * img)
+    # the bound K3's row in PERF.md states: 8.1 µs at 3.35 TB/s
+    assert b["grid_sample_bwd_img"] / 3.35e12 * 1e6 == pytest.approx(8.138, abs=1e-3)
+
+
+def test_profile_breakdown_on_cpu(capsys):
+    out = profile_breakdown.main(TINY + ["--iters", "1"])
+    printed = _printed(capsys)
+    names = ["model_fwd", "model_fwd_bwd", "loss_fwd", "loss_fwd_bwd", "adam_only", "full_step"]
+    assert [line["block"] for line in printed[:-1]] == names
+    for line in printed[:-1]:
+        _assert_finite(line, ("ms", "gflops", "tflops_per_s"))
+        assert line["bf16_peak_pct"] is None
+    blocks = out["blocks"]
+    assert blocks["adam_only"]["gflops"] == 0
+    assert blocks["model_fwd_bwd"]["gflops"] > blocks["model_fwd"]["gflops"] > 0
+    ms = {k: v["ms"] for k, v in blocks.items()}
+    derived = printed[-1]["derived"]
+    assert derived == pytest.approx({
+        "model_bwd_ms": ms["model_fwd_bwd"] - ms["model_fwd"],
+        "warp_loss_fwd_ms": ms["loss_fwd"] - ms["model_fwd"],
+        "warp_loss_bwd_extra_ms": ms["loss_fwd_bwd"] - ms["model_fwd_bwd"],
+        "adam_ms": ms["adam_only"],
+        "step_overhead_ms": ms["full_step"] - ms["loss_fwd_bwd"] - ms["adam_only"],
+    })
+    assert printed[-1]["full_step_idle_share"] is None and printed[-1]["device"] == "cpu"
+
+
+@pytest.mark.parametrize("entry", [bench.main, warp_kernel_bench.main, profile_breakdown.main])
+def test_entry_points_refuse_missing_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry([])
+
+
+def test_busy_union_of_intervals():
+    busy = profile_breakdown.busy_us
+    assert busy([(0, 2), (1, 3), (5, 6), (5.5, 5.7)], 0, 10) == 4
+    assert busy([(-1, 1), (9, 12), (2, 2)], 0, 10) == 2
+    assert busy([], 0, 10) == 0
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    """Both timers under the same patched clock: same window, mean and rate."""
+    clock = [0.0, 0.5, 0.75, 1.5, 1.625, 3.0]
+    results = []
+    for module in (jax_profiler, profiler):
+        ticks = iter(clock)
+        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
+        timer = module.StepTimer(window=3)
+        seen = []
+        for _ in clock:
+            seen.append((timer.mean_step_s, timer.images_per_sec(4)))
+            timer.tick()
+        seen.append((timer.mean_step_s, timer.images_per_sec(4), list(timer.times)))
+        results.append(seen)
+    assert math.isnan(results[1][0][0]) and math.isnan(results[1][1][0])
+    assert repr(results[0]) == repr(results[1])
+    assert results[1][-1][2] == [0.75, 0.125, 1.375]
+
+
+def test_time_ms_on_cpu_calls_warmup_then_iters():
+    calls = []
+    ms = profiler.time_ms(lambda: calls.append(1), torch.device("cpu"), iters=3, warmup=2)
+    assert len(calls) == 5 and math.isfinite(ms) and ms >= 0
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with profiler.trace(str(tmp_path)) as prof:
+        torch.ones(4) + 1
+    assert any(e.name == "aten::add" for e in prof.events())
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::add" for e in events)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            with profiler.trace(host=False):
+                pass
