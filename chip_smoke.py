@@ -10,12 +10,17 @@ version on the card. Phases, each printing one flushed JSON line with its
 wall time:
 
   env      the card (nvidia-smi name and power limit), torch and CUDA versions
-  build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu for sm_90a
+  build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu for sm_90a, and
+           what ptxas says of each kernel: registers, shared memory, spills
   kernels  the three kernels against their plain versions at the main-path
            shape (32 images of 128×416) for C = 1 and 3, on scattered and
-           near-identity uv with exact-border and out-of-range points:
-           forward within 1e-6 abs, d_uv within 1e-4 abs + 1e-5 rel
-           (tests/test_pallas_kernel.py's), d_img per pixel within
+           near-identity uv with exact-border and out-of-range points, and
+           on K1/K2's ragged and unaligned cases, for C = 1, 2 and 3: an odd
+           P that is not a multiple of the 64 points a warp takes, a tiny
+           3×37×53 image, and uv and g as contiguous views one point into a
+           larger buffer (not 16-B aligned) and one float into it (uv not
+           8-B aligned: K1/K2 read it a float at a time). Forward within 1e-6 abs, d_uv within 1e-4 abs + 1e-5
+           rel (tests/test_pallas_kernel.py's), d_img per pixel within
            1e-5·Σ_p|g·w| + 1e-6 (atomics add in no fixed order)
   autograd grid_sample with image and uv requiring grad, through K1, K2, K3,
            against the plain op; each kernel launched exactly once
@@ -25,16 +30,23 @@ wall time:
            state through the plain grid sample: losses agree to 1e-4 rel, all
            parameter grads to 1e-2 relative L2
   reference  the simple_depth fit through the kernels against the committed
-           golden trajectory tests/golden/simple_depth_golden.npz
+           golden trajectories tests/golden/simple_depth_golden.npz (96×32,
+           500 iterations) and simple_depth_golden_416x128.npz (the
+           reference shape, 200 iterations), with the tolerances of
+           tests/test_simple_depth_golden.py
   warp_bench  python -m monodepth2_torch.tools.warp_kernel_bench, in process
            and shortened; its counts must show K1, K2 and K3 launched
   bench    python -m monodepth2_torch.bench (bf16 network), shortened; K1 and
            K2 launched, K3 not
   breakdown  python -m monodepth2_torch.tools.profile_breakdown, shortened
-  times    per kernel at the main-path shape: kernel, plain and library
-           (F.grid_sample, aten.grid_sampler_2d_backward) times with the L2
-           flushed before each launch, and the bound from the bytes and
-           operations of this run's inputs
+  times    per kernel at the main-path shape, C = 1 and (under "C3") C = 3:
+           kernel and library (F.grid_sample, aten.grid_sampler_2d_backward
+           with the one output the kernel computes) times with the L2
+           flushed clean before each launch (`ms`, `library_ms`), flushed by
+           a write alone as before (`*_dirty_l2`: the call also writes back
+           the flush's dirty lines) and warm (`*_warm`); the plain version's
+           clean cold time; the bound from the bytes and operations of this
+           run's inputs
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
@@ -73,27 +85,6 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def make_uv(torch, n, h, w, generator, scattered: bool):
-    """uv (n, h·w, 2): `scattered` draws every point uniformly over
-    [-1.2, 1.2]²; otherwise a warp near the identity, as training sees, with
-    shifts of up to ±3 px. Either way the first points of each image are set
-    exactly on each edge and corner, and beyond them."""
-    p = h * w
-    if scattered:
-        uv = torch.rand((n, p, 2), generator=generator) * 2.4 - 1.2
-    else:
-        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-        pix = torch.stack([xs, ys], -1).reshape(1, p, 2).float()
-        pix = pix + (torch.rand((n, p, 2), generator=generator) * 6 - 3)
-        uv = pix / torch.tensor([w - 1.0, h - 1.0]) * 2 - 1
-    edges = torch.tensor(
-        [[-1, 0.3], [1, -0.2], [0.1, -1], [-0.4, 1], [-1, -1], [1, 1], [-1, 1], [1, -1],
-         [-1.3, 0.2], [1.2, 0.5], [0.3, -1.5], [0.6, 1.1], [-2, 3], [1, 1.4]]
-    )
-    uv[:, : len(edges)] = edges
-    return uv.contiguous()
-
-
 def dimg_excess(GS, img, uv, g, d_img):
     """Largest excess of |d_img − plain| over K3's tolerance 1e-5·Σ_p|g·w| +
     1e-6 per pixel (the plain version run on |g|: the weights are
@@ -122,6 +113,15 @@ def compare_kernels(torch, GS, img, uv, g):
     img_excess, img_err = dimg_excess(GS, img, uv, g, dimg_k)
     check(img_excess <= 0, f"grid_sample_bwd_img disagrees with plain: max err {img_err}, excess {img_excess}")
     return fwd_err, bwd_err, img_err
+
+
+def offset_view(torch, t, floats: int):
+    """t's values in a contiguous view `floats` floats into a larger buffer
+    (one point of uv is 2 floats, of g C floats)."""
+    n, p, k = t.shape
+    view = torch.empty(n * p * k + floats, dtype=t.dtype, device=t.device)[floats:].view(n, p, k)
+    view.copy_(t)
+    return view
 
 
 def reset(GS):
@@ -168,7 +168,10 @@ def main() -> int:
     t = time.perf_counter()
     path = _lib.build()
     _lib.load()
-    emit("build", build_s=round(time.perf_counter() - t, 3), library=path.name, flags=" ".join(_lib.NVCC_FLAGS))
+    ptxas = _lib.ptxas_report()
+    check(all(r["spill_store_bytes"] == 0 for r in ptxas.values()), f"a kernel spills: {ptxas}")
+    emit("build", build_s=round(time.perf_counter() - t, 3), library=path.name, flags=" ".join(_lib.NVCC_FLAGS),
+         ptxas=ptxas)
 
     # ---- kernels against plain
     gen = torch.Generator().manual_seed(0)
@@ -178,16 +181,36 @@ def main() -> int:
         img = torch.rand((N_WARP, HEIGHT, WIDTH, c), generator=gen).cuda()
         g = torch.randn((N_WARP, P, c), generator=gen).cuda()
         for scattered in (True, False):
-            uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered).cuda()
+            uv = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered).cuda()
             errs[(c, scattered)] = compare_kernels(torch, GS, img, uv, g)
             fe, be, ie = errs[(c, scattered)]
             emit("kernels", C=c, uv="scattered" if scattered else "near-identity",
                  shape=[N_WARP, HEIGHT, WIDTH, c], fwd_max_abs_err=fe, bwd_uv_max_abs_err=be,
                  bwd_img_max_abs_err=ie, launches=counts(GS))
+    # the cases K1/K2 take their scalar path for, all in the same launch
+    for c in (1, 2, 3):
+        for case, (n, h, w, p, offset) in {
+            "odd P": (N_WARP, HEIGHT, WIDTH, HEIGHT * WIDTH - 1, None),
+            "tiny image": (3, 37, 53, 37 * 53, None),
+            "views one point in": (4, HEIGHT, WIDTH, HEIGHT * WIDTH, "point"),
+            "views one float in": (4, HEIGHT, WIDTH, HEIGHT * WIDTH - 3, "float"),
+        }.items():
+            img = torch.rand((n, h, w, c), generator=gen).cuda()
+            uv = warp_kernel_bench.make_uv(n, h, w, gen, True, p=p).cuda()
+            g = torch.randn((n, p, c), generator=gen).cuda()
+            if offset == "point":
+                uv, g = offset_view(torch, uv, 2), offset_view(torch, g, c)
+            elif offset == "float":
+                uv, g = offset_view(torch, uv, 1), offset_view(torch, g, 1)
+            errs[(c, case)] = compare_kernels(torch, GS, img, uv, g)
+            fe, be, ie = errs[(c, case)]
+            emit("kernels", C=c, case=case, shape=[n, h, w, c], points=p,
+                 uv_offset_bytes=uv.data_ptr() % 16, g_offset_bytes=g.data_ptr() % 16,
+                 fwd_max_abs_err=fe, bwd_uv_max_abs_err=be, bwd_img_max_abs_err=ie)
 
     # ---- autograd: the op with both gradients, through all three kernels
     img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
-    uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
+    uv = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
     g = torch.randn((N_WARP, P, 1), generator=gen).cuda()
     grads = {}
     reset(GS)
@@ -271,16 +294,21 @@ def main() -> int:
     # ---- reference: the simple_depth fit through the kernels against the
     # committed golden trajectory (an independent PyTorch loop), with the
     # tolerances of tests/test_simple_depth_golden.py
-    golden = np.load(ROOT / "tests" / "golden" / "simple_depth_golden.npz")
-    t = time.perf_counter()
-    fit = fit_simple_depth(golden["frames"], golden["K"], n_iters=int(golden["iters"][-1]), device="cuda")
-    hist = dict(fit["history"])
-    fit_rel = [abs(hist[int(i)] - l) / abs(l) for i, l in zip(golden["iters"], golden["losses"])]
-    disp_diff = abs(fit["disparity"].mean().item() - float(golden["final_disparity"].mean()))
-    check(fit_rel[0] < 1e-5 and max(fit_rel) < 0.02 and fit_rel[-1] < 0.01 and disp_diff < 5e-3,
-          f"simple_depth off its golden: first {fit_rel[0]}, max {max(fit_rel)}, last {fit_rel[-1]}, disp {disp_diff}")
-    emit("reference", fit="simple_depth 96x32, 500 iterations", first_rel=fit_rel[0], max_rel=max(fit_rel),
-         last_rel=fit_rel[-1], mean_disparity_diff=disp_diff, fit_s=round(time.perf_counter() - t, 3))
+    for golden_file in ("simple_depth_golden.npz", "simple_depth_golden_416x128.npz"):
+        golden = np.load(ROOT / "tests" / "golden" / golden_file)
+        t = time.perf_counter()
+        iters = int(golden["iters"][-1])
+        fit = fit_simple_depth(golden["frames"], golden["K"], n_iters=iters, device="cuda")
+        hist = dict(fit["history"])
+        fit_rel = [abs(hist[int(i)] - l) / abs(l) for i, l in zip(golden["iters"], golden["losses"])]
+        disp_diff = abs(fit["disparity"].mean().item() - float(golden["final_disparity"].mean()))
+        check(fit_rel[0] < 1e-5 and max(fit_rel) < 0.02 and fit_rel[-1] < 0.01 and disp_diff < 5e-3,
+              f"simple_depth off {golden_file}: first {fit_rel[0]}, max {max(fit_rel)}, last {fit_rel[-1]}, "
+              f"disp {disp_diff}")
+        _, _, h, w, _ = golden["frames"].shape
+        emit("reference", fit=f"simple_depth {w}x{h}, {iters} iterations", golden=golden_file,
+             first_rel=fit_rel[0], max_rel=max(fit_rel), last_rel=fit_rel[-1], mean_disparity_diff=disp_diff,
+             fit_s=round(time.perf_counter() - t, 3))
 
     # ---- the measurement entry points, in process and shortened, with the
     # settings a user's run has (cuDNN free to choose, TF32 convs)
@@ -317,84 +345,99 @@ def main() -> int:
          **{k: breakdown["idle_window"][k] for k in
             ("idle_share", "busy_ms_per_step", "window_ms_per_step", "device_activities_per_step")})
 
-    # ---- times at the main-path shape (C = 1, near-identity uv; the image
-    # VJP also on scattered uv, whose clamped points pile onto border pixels)
-    img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
-    uv = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
-    uv_scattered = make_uv(torch, N_WARP, HEIGHT, WIDTH, gen, scattered=True).cuda()
-    g = torch.randn((N_WARP, P, 1), generator=gen).cuda()
-    img_nchw, grid = img.permute(0, 3, 1, 2), uv.reshape(N_WARP, 1, P, 2)
-    g_nchw = g.reshape(N_WARP, 1, 1, P)
+    # ---- times at the main-path shape (near-identity uv; the image VJP at
+    # C = 1 also on scattered uv, whose clamped points pile onto border
+    # pixels), C = 1 and C = 3
+    def timings(fn, prefix=""):
+        """Clean-L2 cold, dirty-L2 cold and warm times of fn, in ms."""
+        return {
+            f"{prefix}ms": time_ms(fn, dev, 50, flush_l2=True),
+            f"{prefix}ms_dirty_l2": time_ms(fn, dev, 50, flush_l2="dirty"),
+            f"{prefix}ms_warm": time_ms(fn, dev, 50),
+        }
 
-    def library_dimg(grid):
-        # interpolation 0 = bilinear, padding 1 = border, align_corners True;
-        # output mask [True, False]: d_img only
-        return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, [True, False])[0]
+    def time_rows(c):
+        """{kernel name: its times, the plain version's and the library's,
+        and its bound} at (N_WARP, HEIGHT, WIDTH, c)."""
+        img = torch.rand((N_WARP, HEIGHT, WIDTH, c), generator=gen).cuda()
+        uv = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered=False).cuda()
+        g = torch.randn((N_WARP, P, c), generator=gen).cuda()
+        img_nchw, grid = img.permute(0, 3, 1, 2), uv.reshape(N_WARP, 1, P, 2)
+        g_nchw = g.permute(0, 2, 1).reshape(N_WARP, c, 1, P).contiguous()
 
-    # the library's d_img has the port's weights and clamped taps: hold it to
-    # K3's tolerance, so that its time is a yardstick of the same function
-    lib_excess, lib_err = dimg_excess(GS, img, uv, g, library_dimg(grid).permute(0, 2, 3, 1))
-    check(lib_excess <= 0, f"library d_img differs from plain: max err {lib_err}")
-    f32 = 4
-    n_pts = N_WARP * P
+        def library_bwd(grid, mask):
+            # interpolation 0 = bilinear, padding 1 = border, align_corners
+            # True; mask [True, False]: d_img only, [False, True]: d_uv only
+            return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, mask)
+
+        # the library's d_img has the port's weights and clamped taps: hold it
+        # to K3's tolerance, so that its time is a yardstick of the same
+        # function (its d_uv counts border samples as outside, where the port
+        # follows Pallas)
+        lib_excess, lib_err = dimg_excess(GS, img, uv, g, library_bwd(grid, [True, False])[0].permute(0, 2, 3, 1))
+        check(lib_excess <= 0, f"library d_img differs from plain at C = {c}: max err {lib_err}")
+        n_pts = N_WARP * P
+        nbytes = warp_kernel_bench.kernel_bytes(N_WARP, HEIGHT, WIDTH, c)
+        rows = {}
+        for k, kernel, plain_fn, library, ops in (
+            (
+                GS.grid_sample_fwd,
+                lambda: GS.grid_sample_fwd(img, uv),
+                lambda: GS.grid_sample_fwd_plain(img, uv),
+                lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True),
+                n_pts * (OPS_COORDS + c * OPS_FWD_CH),
+            ),
+            (
+                GS.grid_sample_bwd_uv,
+                lambda: GS.grid_sample_bwd_uv(img, uv, g),
+                lambda: GS.grid_sample_bwd_uv_plain(img, uv, g),
+                lambda: library_bwd(grid, [False, True]),
+                n_pts * (OPS_COORDS + c * OPS_BWD_CH),
+            ),
+            (
+                GS.grid_sample_bwd_img,
+                # timed with the wrapper's zero fill of d_img, as callers get it
+                lambda: GS.grid_sample_bwd_img(img, uv, g),
+                lambda: GS.grid_sample_bwd_img_plain(img, uv, g),
+                lambda: library_bwd(grid, [True, False]),
+                n_pts * (OPS_COORDS + OPS_IMG_WEIGHTS + c * OPS_BWD_IMG_CH),
+            ),
+        ):
+            bound_bytes = nbytes[k.name] / H100_BYTES_PER_S * 1e3
+            bound_ops = ops / H100_FP32_FLOPS * 1e3
+            rows[k.name] = dict(
+                **timings(kernel), plain_ms=time_ms(plain_fn, dev, 20, flush_l2=True), **timings(library, "library_"),
+                bound_ms=max(bound_bytes, bound_ops), bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                bytes=nbytes[k.name], operations=ops, shape=[N_WARP, HEIGHT, WIDTH, c], uv="near-identity",
+            )
+        name = GS.grid_sample_bwd_img.name
+        rows[name]["library_max_abs_err"] = lib_err
+        rows[name]["zero_fill_bytes"] = 4 * img.numel()
+        if c == 1:
+            uv_scattered = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered=True).cuda()
+            rows[name].update(
+                ms_scattered=time_ms(lambda: GS.grid_sample_bwd_img(img, uv_scattered, g), dev, 50, flush_l2=True),
+                library_ms_scattered=time_ms(
+                    lambda: library_bwd(uv_scattered.reshape(N_WARP, 1, P, 2), [True, False]), dev, 50, flush_l2=True
+                ),
+            )
+        return rows
+
+    rows, rows_c3 = time_rows(1), time_rows(3)
     max_errs = [max(e[i] for e in errs.values()) for i in range(3)]
-    nbytes = warp_kernel_bench.kernel_bytes(N_WARP, HEIGHT, WIDTH, 1)
     kernels = []
-    for k, err, kernel, plain_fn, library, ops, lines, launches in (
-        (
-            GS.grid_sample_fwd, max_errs[0],
-            lambda: GS.grid_sample_fwd(img, uv),
-            lambda: GS.grid_sample_fwd_plain(img, uv),
-            lambda: F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True),
-            n_pts * (OPS_COORDS + OPS_FWD_CH),
-            (116, 175),  # _fwd_kernel, _fwd_kernel_colband
-            slice_launches,
-        ),
-        (
-            GS.grid_sample_bwd_uv, max_errs[1],
-            lambda: GS.grid_sample_bwd_uv(img, uv, g),
-            lambda: GS.grid_sample_bwd_uv_plain(img, uv, g),
-            # the same VJP, but torch counts border samples as outside
-            lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 1, True, [False, True]),
-            n_pts * (OPS_COORDS + OPS_BWD_CH),
-            (124, 186),  # _bwd_duv_kernel, _bwd_duv_kernel_colband
-            slice_launches,
-        ),
-        (
-            GS.grid_sample_bwd_img, max_errs[2],
-            # timed with the wrapper's zero fill of d_img, as callers get it
-            lambda: GS.grid_sample_bwd_img(img, uv, g),
-            lambda: GS.grid_sample_bwd_img_plain(img, uv, g),
-            lambda: library_dimg(grid),
-            n_pts * (OPS_COORDS + OPS_IMG_WEIGHTS + OPS_BWD_IMG_CH),
-            (154, 214),  # _bwd_dimg_kernel, _bwd_dimg_kernel_colband
-            # its path is the warp bench's forward + VJP; training runs it 0 times
-            warp_launches,
-        ),
+    for k, err, lines, launches in (
+        (GS.grid_sample_fwd, max_errs[0], (116, 175), slice_launches),  # _fwd_kernel, _fwd_kernel_colband
+        (GS.grid_sample_bwd_uv, max_errs[1], (124, 186), slice_launches),  # _bwd_duv_kernel, _colband
+        # K3's path is the warp bench's forward + VJP; training runs it 0 times
+        (GS.grid_sample_bwd_img, max_errs[2], (154, 214), warp_launches),  # _bwd_dimg_kernel, _colband
     ):
-        bound_bytes = nbytes[k.name] / H100_BYTES_PER_S * 1e3
-        bound_ops = ops / H100_FP32_FLOPS * 1e3
-        ms = time_ms(kernel, dev, 50, flush_l2=True)
-        row = dict(
+        kernels.append(dict(
             name=k.name, route="cuda", source="monodepth2_torch/ops/cuda/grid_sample.cu",
             replaces=f"{TPU_KERNELS}:{lines[0]}", also_replaces=f"{TPU_KERNELS}:{lines[1]}",
             launches=launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
-            max_abs_err=err, ms=ms, kernel_ms=ms,
-            plain_ms=time_ms(plain_fn, dev, 50, flush_l2=True), bound_ms=max(bound_bytes, bound_ops),
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=time_ms(library, dev, 50, flush_l2=True), bytes=nbytes[k.name], operations=ops,
-            shape=[N_WARP, HEIGHT, WIDTH, 1], uv="near-identity",
-        )
-        if k is GS.grid_sample_bwd_img:
-            row.update(
-                ms_scattered=time_ms(lambda: GS.grid_sample_bwd_img(img, uv_scattered, g), dev, 50, flush_l2=True),
-                library_ms_scattered=time_ms(
-                    lambda: library_dimg(uv_scattered.reshape(N_WARP, 1, P, 2)), dev, 50, flush_l2=True
-                ),
-                zero_fill_bytes=f32 * img.numel(),
-                library_max_abs_err=lib_err,
-            )
-        kernels.append(row)
+            max_abs_err=err, **rows[k.name], C3=rows_c3[k.name],
+        ))
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -95,11 +95,26 @@ class Conv(nn.Module):
         return self.act(y) if self.act is not None else y
 
 
+def _bf16(v: float) -> float:
+    """v rounded to bfloat16, as a Python float."""
+    return torch.tensor(v, dtype=torch.bfloat16).item()
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over N,H,W (core.py:114-158): eps 1e-5, momentum 0.1; the
     running variance takes the unbiased batch variance, normalization the
-    biased one — torch's own rule. The running stats are buffers that a
-    training-mode forward updates in place."""
+    biased one — torch's own rule. The running stats are fp32 buffers that a
+    training-mode forward updates in place.
+
+    A bf16 input (the network under autocast, compute_dtype "bfloat16")
+    updates them as the JAX package's jitted step does. There the stats are
+    cast to bf16 before the model (training/loss.py:77), so in
+    `(1 - m) * stats + m * moment` (core.py:146-147) the carried stat is
+    rounded to bf16 and scaled by 1 − m rounded to bf16 (0.8984375), the
+    batch moments come out of the bf16 mean and variance rounded to bf16
+    (the variance times n/(n−1) rounded to bf16), and XLA takes the products
+    and the sum in fp32 (a product of two bf16 values is exact in fp32).
+    Other inputs keep torch's fp32 update."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(ch, eps=eps, momentum=momentum)
@@ -107,6 +122,33 @@ class BatchNorm(nn.BatchNorm2d):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         super().reset_parameters()
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not (self.training and x.dtype == torch.bfloat16 and self.running_mean.dtype == torch.float32):
+            return super().forward(x)
+        # normalize by the batch moments; the running update follows
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        self._bf16_running_update(x.detach())
+        return y
+
+    @torch.no_grad()
+    def _bf16_running_update(self, x: Tensor) -> None:
+        # both stats in one (2, C) tensor: a handful of kernels a layer, not
+        # twice as many (an eager step is bound by its launches)
+        m = self.momentum
+        n = x.numel() // x.shape[1]
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            # fp32 sums of the bf16 input, each moment rounded to bf16 once
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        moments = torch.stack((mean, var)).to(torch.bfloat16)
+        unbias = _bf16(n / max(n - 1, 1))
+        if unbias != 1.0:  # n < 256: the factor is not 1 in bf16
+            moments = moments.float()
+            moments[1].mul_(unbias)
+        stats = torch.stack((self.running_mean, self.running_var))
+        stats = stats.to(torch.bfloat16).float().mul_(_bf16(1 - m)).add_(moments, alpha=m)
+        torch._foreach_copy_([self.running_mean, self.running_var], [stats[0], stats[1]])
+        self.num_batches_tracked.add_(1)
 
 
 def max_pool(x: Tensor, window: int = 2, stride: int = 2, padding: int = 0) -> Tensor:

@@ -16,9 +16,10 @@ tool (identity plus a per-image horizontal shift), for three methods:
            counts a sample exactly on the border as outside, so its d_uv is 0
            there where the port's (the Pallas rule) is the one-sided slope
 
-Each time is taken twice with CUDA events: with the L2 flushed before every
-call (cold, `*_ms`) and with calls back to back (warm, `*_ms_warm`: inputs
-still in L2, as inside a step where `project` just wrote uv). The `cuda` row
+Each time is taken twice with CUDA events (`utils.profiler.time_ms`): with
+the L2 flushed clean before every call (cold, `*_ms`) and with calls back to
+back (warm, `*_ms_warm`: inputs still in L2, as inside a step where
+`project` just wrote uv). The `cuda` row
 also times each kernel alone. Bytes are those each function must move (each
 input read once, each output written once, fp32); the bound is bytes over the
 H100's 3.35 TB/s, and `*_pct_hbm_roofline` is that bound over the cold time.
@@ -77,6 +78,29 @@ def make_inputs(n: int, h: int, w: int, c: int, device: torch.device, seed: int 
     uv = uv.reshape(n, h * w, 2).astype(np.float32)
     g = np.ones((n, h * w, c), np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (img, uv, g))
+
+
+def make_uv(n: int, h: int, w: int, generator: torch.Generator, scattered: bool, p: Optional[int] = None):
+    """uv (n, p, 2) on the CPU, p = h·w by default: `scattered` draws every
+    point uniformly over [-1.2, 1.2]²; otherwise a warp near the identity, as
+    training sees, with shifts of up to ±3 px a point (p = h·w only). Either
+    way the first points of each image are set exactly on each edge and
+    corner, and beyond them. The inputs of chip_smoke.py's kernel checks and
+    times, and of tools.kernel_ab."""
+    p = h * w if p is None else p
+    if scattered:
+        uv = torch.rand((n, p, 2), generator=generator) * 2.4 - 1.2
+    else:
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        pix = torch.stack([xs, ys], -1).reshape(1, p, 2).float()
+        pix = pix + (torch.rand((n, p, 2), generator=generator) * 6 - 3)
+        uv = pix / torch.tensor([w - 1.0, h - 1.0]) * 2 - 1
+    edges = torch.tensor(
+        [[-1, 0.3], [1, -0.2], [0.1, -1], [-0.4, 1], [-1, -1], [1, 1], [-1, 1], [1, -1],
+         [-1.3, 0.2], [1.2, 0.5], [0.3, -1.5], [0.6, 1.1], [-2, 3], [1, 1.4]]
+    )
+    uv[:, : len(edges)] = edges
+    return uv.contiguous()
 
 
 def method_fns(method: str, img, uv, g):

@@ -14,7 +14,7 @@ import statistics
 import time
 from collections import deque
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -46,14 +46,25 @@ class StepTimer:
 
 
 def time_ms(
-    fn: Callable[[], object], device: torch.device, iters: int, warmup: int = 3, flush_l2: bool = False
+    fn: Callable[[], object],
+    device: torch.device,
+    iters: int,
+    warmup: int = 3,
+    flush_l2: Union[bool, str] = False,
 ) -> float:
     """Milliseconds of the card's time for one fn() call, after `warmup`
-    calls: the median over `iters` calls, each timed alone with CUDA events
-    after a 128 MB write has evicted the L2, with `flush_l2` (the cold case:
-    what a call finds when other work ran before it); else the median over 3
-    windows of the mean of `iters` back-to-back calls (the warm case: inputs
-    still in L2 from the call before).
+    calls.
+
+    flush_l2 True: the cold case, what a call finds when other
+    work ran before it. The median over `iters` calls, each timed alone with
+    CUDA events after a 128 MB write has evicted the L2 and a 128 MB read
+    (a sum into a preallocated scalar) has then evicted the write's dirty
+    lines, so the L2 the call finds is clean and the call writes back to
+    device memory nothing but its own bytes. "dirty": the same without the
+    read, the yardstick used before, where the call starts by writing back
+    up to 50 MB of the flush buffer as it fills the L2 (up to ~15 µs at
+    3.35 TB/s). False: the warm case, the median over 3 windows of the mean
+    of `iters` back-to-back calls (inputs still in L2 from the call before).
 
     Before each start event the stream runs a device-side sleep that
     outlasts the host's enqueue of the timed calls, so they are all queued
@@ -63,6 +74,8 @@ def time_ms(
     the CPU: the mean host-clock time of `iters` calls; there is no L2 to
     flush.
     """
+    if flush_l2 not in (False, True, "dirty"):
+        raise ValueError(f"flush_l2 must be False, True or 'dirty', got {flush_l2!r}")
     for _ in range(warmup):
         fn()
     if device.type != "cuda":
@@ -85,8 +98,14 @@ def time_ms(
     times = []
     if flush_l2:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        clean = flush_l2 is True
+        if clean:
+            scrub = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+            sink = torch.empty((), dtype=torch.float32, device=device)
         for _ in range(iters):
             flush.zero_()
+            if clean:
+                torch.sum(scrub, dim=0, out=sink)
             sleep_covering(1)
             start.record()
             fn()

@@ -25,13 +25,23 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, n, h, w, c, seed=0):
+def _case(dev, n, h, w, c, seed=0, p=None):
+    p = h * w if p is None else p
     gen = torch.Generator().manual_seed(seed)
     img = torch.rand((n, h, w, c), generator=gen)
-    uv = torch.rand((n, h * w, 2), generator=gen) * 2.4 - 1.2
+    uv = torch.rand((n, p, 2), generator=gen) * 2.4 - 1.2
     uv[:, :8] = torch.tensor([[-1, 0.3], [1, -0.2], [0.1, -1], [-0.4, 1], [-1, -1], [1, 1], [-1.5, 0], [0, 2]])
-    g = torch.randn((n, h * w, c), generator=gen)
+    g = torch.randn((n, p, c), generator=gen)
     return img.to(dev), uv.to(dev), g.to(dev)
+
+
+def _offset_view(t, floats):
+    """t's values in a contiguous view `floats` floats into a larger buffer:
+    one point of uv is 8 B, of g 4·C B."""
+    n, p, k = t.shape
+    view = torch.empty(n * p * k + floats, dtype=t.dtype, device=t.device)[floats:].view(n, p, k)
+    view.copy_(t)
+    return view
 
 
 def _assert_dimg_close(img, uv, g, d_img):
@@ -47,6 +57,41 @@ def _assert_dimg_close(img, uv, g, d_img):
 @pytest.mark.parametrize("shape", [(2, 12, 20, 1), (2, 12, 20, 3), (32, 128, 416, 1), (32, 128, 416, 3)])
 def test_kernels_match_plain(dev, shape):
     img, uv, g = _case(dev, *shape)
+    before = [k.launches for k in GS.KERNELS]
+    torch.testing.assert_close(GS.grid_sample_fwd(img, uv), GS.grid_sample_fwd_plain(img, uv), rtol=0, atol=1e-6)
+    torch.testing.assert_close(
+        GS.grid_sample_bwd_uv(img, uv, g), GS.grid_sample_bwd_uv_plain(img, uv, g), rtol=1e-5, atol=1e-4
+    )
+    _assert_dimg_close(img, uv, g, GS.grid_sample_bwd_img(img, uv, g))
+    torch.cuda.synchronize()
+    assert [k.launches for k in GS.KERNELS] == [n + 1 for n in before]
+
+
+# The ragged and unaligned cases of K1/K2 (2 points a thread, uv and duv as
+# one 8-B access a point where uv is 8-B aligned): a P that is odd and not a
+# multiple of the 64 points a warp takes, a tiny image, uv and g as contiguous views one point into a
+# larger buffer (uv 8 B, g 4·C B: not 16-B aligned), and one float into it
+# (uv 4 B: the scalar uv path). C = 2 takes the generic-C kernel.
+EDGE_CASES = {
+    "odd P": dict(n=3, h=20, w=30, p=599),
+    "tiny image": dict(n=3, h=37, w=53),
+    "views one point in": dict(n=4, h=16, w=24, offset="point"),
+    "views one float in": dict(n=4, h=16, w=24, p=383, offset="float"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_kernels_match_plain_on_ragged_and_offset_inputs(dev, case, c):
+    kw = dict(EDGE_CASES[case])
+    offset = kw.pop("offset", None)
+    img, uv, g = _case(dev, c=c, **kw)
+    if offset == "point":
+        uv, g = _offset_view(uv, 2), _offset_view(g, c)
+        assert uv.is_contiguous() and uv.data_ptr() % 16 and g.data_ptr() % 16
+    elif offset == "float":
+        uv, g = _offset_view(uv, 1), _offset_view(g, 1)
+        assert uv.is_contiguous() and uv.data_ptr() % 8
     before = [k.launches for k in GS.KERNELS]
     torch.testing.assert_close(GS.grid_sample_fwd(img, uv), GS.grid_sample_fwd_plain(img, uv), rtol=0, atol=1e-6)
     torch.testing.assert_close(

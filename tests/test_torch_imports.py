@@ -38,12 +38,12 @@ def test_port_imports_without_jax():
         assert not loaded, loaded
         measuring = {{"monodepth2_torch.bench", "monodepth2_torch.utils", "monodepth2_torch.utils.profiler",
                      "monodepth2_torch.tools", "monodepth2_torch.tools.warp_kernel_bench",
-                     "monodepth2_torch.tools.profile_breakdown"}}
+                     "monodepth2_torch.tools.profile_breakdown", "monodepth2_torch.tools.kernel_ab"}}
         assert measuring <= set(names), measuring - set(names)
         print(len(names), "modules")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 21
+    assert int(proc.stdout.split()[0]) >= 22
 
 
 def test_entry_points_refuse_missing_cuda():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from monodepth2_torch import bench
-from monodepth2_torch.tools import profile_breakdown, warp_kernel_bench
+from monodepth2_torch.tools import kernel_ab, profile_breakdown, warp_kernel_bench
 from monodepth2_torch.utils import profiler
 from monodepth2_tpu.utils import profiler as jax_profiler
 
@@ -141,6 +141,72 @@ def test_time_ms_on_cpu_calls_warmup_then_iters():
     calls = []
     ms = profiler.time_ms(lambda: calls.append(1), torch.device("cpu"), iters=3, warmup=2)
     assert len(calls) == 5 and math.isfinite(ms) and ms >= 0
+
+
+@pytest.mark.parametrize("flush_l2", [False, True, "dirty"])
+def test_time_ms_takes_each_flush_mode(flush_l2):
+    """Warm, and the two cold yardsticks: True leaves the L2 clean (a write,
+    then a read of a second buffer), "dirty" is the write alone. On the CPU
+    there is no L2, and each mode times the calls the same way."""
+    calls = []
+    ms = profiler.time_ms(lambda: calls.append(1), torch.device("cpu"), iters=2, warmup=1, flush_l2=flush_l2)
+    assert len(calls) == 3 and math.isfinite(ms) and ms >= 0
+
+
+def test_time_ms_refuses_an_unknown_flush_mode():
+    with pytest.raises(ValueError):
+        profiler.time_ms(lambda: None, torch.device("cpu"), iters=1, flush_l2="warm")
+
+
+def test_ptxas_report_reads_each_kernel():
+    from monodepth2_torch.ops.cuda import _lib
+
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__grid_sample_cu_66088be2_22grid_sample_fwd_kernelILi1EEEvPKfS2_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__grid_sample_cu_66088be2_22grid_sample_fwd_kernelILi1EEEvPKfS2_Pfiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 404 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__grid_sample_cu_66088be2_26grid_sample_bwd_img_kernelEPKfS1_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__grid_sample_cu_66088be2_26grid_sample_bwd_img_kernelEPKfS1_Pfiiiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 16 bytes smem, 400 bytes cmem[0]
+"""
+    assert _lib.ptxas_report(text) == {
+        "grid_sample_fwd_kernel<1>": dict(
+            registers=32, smem_bytes=0, stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0
+        ),
+        "grid_sample_bwd_img_kernel": dict(
+            registers=40, smem_bytes=16, stack_bytes=8, spill_store_bytes=4, spill_load_bytes=4
+        ),
+    }
+
+
+def test_kernel_ab_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for device in ("cuda", "cpu"):
+        with pytest.raises(RuntimeError):
+            kernel_ab.main(["--baseline", "old.cu", "--device", device])
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_make_uv(scattered):
+    """The kernel checks' and timings' uv: edge and corner points first, then
+    uniform over [-1.2, 1.2]² or the identity ±3 px."""
+    n, h, w = 2, 8, 12
+    uv = warp_kernel_bench.make_uv(n, h, w, torch.Generator().manual_seed(0), scattered)
+    assert uv.shape == (n, h * w, 2) and uv.is_contiguous()
+    assert torch.equal(uv[:, 0], torch.tensor([[-1.0, 0.3]] * n)) and torch.equal(uv[:, 5], torch.ones(n, 2))
+    rest = uv[:, 14:]
+    if scattered:
+        assert float(rest.abs().max()) <= 1.2
+    else:
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        pix = (uv + 1) / 2 * torch.tensor([w - 1.0, h - 1.0])
+        shift = pix - torch.stack([xs, ys], -1).reshape(1, h * w, 2)
+        assert float(shift[:, 14:].abs().max()) <= 3 + 1e-4
+    odd = warp_kernel_bench.make_uv(n, h, w, torch.Generator().manual_seed(0), True, p=37)
+    assert odd.shape == (n, 37, 2)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

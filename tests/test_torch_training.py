@@ -27,6 +27,15 @@ That Adam noise also reaches the gradients of steps 2-3: in float32 each
 side's Adam moments after 3 steps differ from its own float64 run by up to
 9e-2 of the largest entry of encoder/layer4_0/proj (measured at this shape),
 so after 3 steps the moments are held to each other in float64 only.
+
+bfloat16 (compute_dtype "bfloat16": float32 master weights, the network in
+bf16, geometry and loss in float32) has no exact side: both packages round
+the network to bf16, at different places (XLA's bf16 convolutions and
+fusions against oneDNN's under autocast). Each quantity is held to twice
+the JAX package's own bf16-vs-float32 difference measured in the same
+fixture: √2 for two independent roundings of the same size, rounded up.
+One BatchNorm layer alone is held exactly, since there both sides see the
+same bf16 input.
 """
 
 import glob
@@ -41,6 +50,8 @@ import pytest
 import torch
 
 from monodepth2_tpu.models import Model as JModel
+from monodepth2_tpu.nn.core import BatchNorm as JBatchNorm
+from monodepth2_tpu.nn.core import cast_tree
 from monodepth2_tpu.training import TrainConfig as JConfig
 from monodepth2_tpu.training import TrainContext as JContext
 from monodepth2_tpu.training import create_train_state as j_create
@@ -49,6 +60,7 @@ from monodepth2_tpu.training import train_loss as j_train_loss
 from monodepth2_tpu.ops.losses import automasking_loss
 from monodepth2_torch.bridge import params_from_jax, params_to_jax
 from monodepth2_torch.models import Model
+from monodepth2_torch.nn.core import BatchNorm
 from monodepth2_torch.training import (
     TrainConfig,
     TrainContext,
@@ -274,3 +286,106 @@ def test_bf16_network_step_is_finite_and_close_to_fp32():
         losses[dtype] = loss.item()
     assert np.isfinite(losses["bfloat16"])
     np.testing.assert_allclose(losses["bfloat16"], losses["float32"], rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 12, 16), (1, 1, 7, 32), (2, 4, 4, 64)])
+def test_bf16_batchnorm_running_update_matches_jax(shape):
+    """One BatchNorm layer in training mode on the same bf16 input, from the
+    same float32 running stats: the JAX layer as the jitted bf16 step runs it
+    (stats cast to bf16, training/loss.py:77) against the port's under a bf16
+    input. Both round the carried stat, 1 − m, the batch moments and
+    n/(n−1) to bf16 and sum in float32, so they agree to a few float32 ulps
+    (the remaining rounding: the moments' float32 sums, taken in another
+    order, could round to a different bf16 value at a tie; at these seeds
+    none does). A (1, 1, 7, 32) input has n = 7, where n/(n−1) rounds to
+    1.1640625. Torch's own float32 update, which the port used before,
+    misses by m·|Δ| of the unrounded stat, ~5e-3 here."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(1)
+    x = jnp.asarray(rng.standard_normal(shape) * 1.5 + 0.3, jnp.bfloat16)
+    stats = {"mean": rng.standard_normal(c).astype(np.float32), "var": rng.uniform(0.5, 2, c).astype(np.float32)}
+    jbn = JBatchNorm(c)
+    params, _ = jbn.init(jax.random.PRNGKey(0))
+    _, ref = jax.jit(lambda p, s, x: jbn(p, s, x, train=True))(
+        cast_tree(params, jnp.bfloat16), cast_tree(stats, jnp.bfloat16), x
+    )
+    x_t = torch.from_numpy(np.asarray(x, np.float32)).permute(0, 3, 1, 2)
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bn = BatchNorm(c).train()
+        bn.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        bn.running_var.copy_(torch.from_numpy(stats["var"]))
+        bn(x_t.to(dtype))
+        got[dtype] = {"mean": bn.running_mean.numpy(), "var": bn.running_var.numpy()}
+    for k in ("mean", "var"):
+        want = np.asarray(ref[k], np.float32)
+        gaps = {str(dtype): float(np.abs(got[dtype][k] - want).max()) for dtype in got}
+        print(f"running {k} {shape}: largest gap to JAX {gaps}")  # pytest -s shows the record
+        np.testing.assert_allclose(got[torch.bfloat16][k], want, rtol=5e-7, atol=1e-7, err_msg=k)
+        # the float32 update, unmirrored, is far outside that tolerance
+        assert gaps[str(torch.float32)] > 1e-3, k
+
+
+@pytest.fixture(scope="module")
+def bf16_run():
+    """The base configuration in bf16 on both sides, from the same weights,
+    and the JAX package in float32 beside it: first-step grads, and the
+    loss, mean disparity and BN stats after each of 3 steps."""
+    kw = dict(BASE, compute_dtype="bfloat16")
+    keep = lambda history: [{k: h[k] for k in ("loss", "mean_disparity", "stats")} for h in history]
+    init, grads_j, history_j = _jax_run(kw, False, jnp.float32)
+    grads_t, history_t = _port_run(kw, False, init, torch.float32)
+    _, grads_j32, history_j32 = _jax_run(BASE, False, jnp.float32)
+    return dict(grads_j=grads_j, grads_t=grads_t, grads_j32=grads_j32,
+                history_j=keep(history_j), history_t=keep(history_t), history_j32=keep(history_j32))
+
+
+def _leaf_distances(got, ref, scale):
+    """Per leaf, the L2 distance of got from ref over the L2 norm of scale."""
+    got, ref, scale = dict(_leaves(got)), dict(_leaves(ref)), dict(_leaves(scale))
+    assert got.keys() == ref.keys() == scale.keys()
+    return np.asarray([
+        np.linalg.norm(got[k].astype(np.float64) - ref[k]) / max(np.linalg.norm(scale[k].astype(np.float64)), 1e-30)
+        for k in sorted(ref)
+    ])
+
+
+def _assert_within_jax_bf16_error(got, ref, ref_f32, factor=2.0):
+    """Port-vs-JAX distances, leaf by leaf relative to the JAX float32 leaf,
+    against the JAX bf16-vs-float32 distances: their largest and their mean
+    over the leaves each within `factor` of the JAX ones. Leaf by leaf would
+    not do: a one-element leaf (a disparity head's bias) carries one draw of
+    the bf16 noise."""
+    port = _leaf_distances(got, ref, ref_f32)
+    jax_err = _leaf_distances(ref, ref_f32, ref_f32)
+    print(f"port vs JAX bf16: max {port.max():.4g}, mean {port.mean():.4g}; "
+          f"JAX bf16 vs float32: max {jax_err.max():.4g}, mean {jax_err.mean():.4g}")
+    assert port.max() <= factor * jax_err.max(), (port.max(), jax_err.max())
+    assert port.mean() <= factor * jax_err.mean(), (port.mean(), jax_err.mean())
+
+
+def test_bf16_steps_loss_matches_jax(bf16_run):
+    """Loss of each of 3 bf16 steps. The mean disparity is not compared: the
+    port's after 2 steps moves over 0.31-0.40 when the frames change by 1e-6
+    relative (Adam's first steps take the sign of each gradient element, and
+    bf16 rounding flips ~15% of the signs at this shape), while the loss moves
+    by ~1e-3 relative."""
+    r = bf16_run
+    losses = [[h["loss"] for h in r[k]] for k in ("history_t", "history_j", "history_j32")]
+    port, ref, ref_f32 = (np.asarray(v) for v in losses)
+    print(f"losses: port bf16 {port}, JAX bf16 {ref}, JAX float32 {ref_f32}")
+    assert np.isfinite(port).all()
+    assert np.abs(port - ref).max() <= 2 * np.abs(ref - ref_f32).max(), (port, ref, ref_f32)
+
+
+def test_bf16_first_step_grads_match_jax(bf16_run):
+    r = bf16_run
+    _assert_within_jax_bf16_error(r["grads_t"], r["grads_j"], r["grads_j32"])
+
+
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_bf16_bn_stats_match_jax(bf16_run, step):
+    r = bf16_run
+    _assert_within_jax_bf16_error(
+        r["history_t"][step - 1]["stats"], r["history_j"][step - 1]["stats"], r["history_j32"][step - 1]["stats"]
+    )
