@@ -11,7 +11,8 @@ wall time:
 
   env      the card (nvidia-smi name and power limit), torch and CUDA versions
   build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu for sm_90a, and
-           what ptxas says of each kernel: registers, shared memory, spills
+           what ptxas says of each kernel: registers, shared memory, spills;
+           beside it the dynamic shared memory of K3's blocks at 128×416
   kernels  the three kernels against their plain versions at the main-path
            shape (32 images of 128×416) for C = 1 and 3, on scattered and
            near-identity uv with exact-border and out-of-range points, and
@@ -19,9 +20,15 @@ wall time:
            P that is not a multiple of the 64 points a warp takes, a tiny
            3×37×53 image, and uv and g as contiguous views one point into a
            larger buffer (not 16-B aligned) and one float into it (uv not
-           8-B aligned: K1/K2 read it a float at a time). Forward within 1e-6 abs, d_uv within 1e-4 abs + 1e-5
-           rel (tests/test_pallas_kernel.py's), d_img per pixel within
-           1e-5·Σ_p|g·w| + 1e-6 (atomics add in no fixed order)
+           8-B aligned: K1/K2 read it a float at a time); then K3 alone on
+           the cases of warp_kernel_bench.BWD_IMG_CASES for C = 1, 2 and 3,
+           which reach both paths of its design (a band of rows summed in
+           shared memory; direct adds with a shared copy of the border) and
+           their edges. Forward within 1e-6 abs, d_uv within 1e-4 abs +
+           1e-5 rel (tests/test_pallas_kernel.py's), d_img per pixel within
+           1e-5·Σ_p|g·w| + 1e-6 (atomics add in no fixed order), and d_img
+           conserving Σ_p g over each image and channel (float64 sums,
+           within that tolerance summed over the pixels)
   autograd grid_sample with image and uv requiring grad, through K1, K2, K3,
            against the plain op; each kernel launched exactly once
   slice    3 fp32 train steps (TF32 off) through the kernels, the launch
@@ -46,7 +53,10 @@ wall time:
            a write alone as before (`*_dirty_l2`: the call also writes back
            the flush's dirty lines) and warm (`*_warm`); the plain version's
            clean cold time; the bound from the bytes and operations of this
-           run's inputs
+           run's inputs. K3 and its library call also clean cold on the
+           warp bench's smooth warp (`*_smooth`) and on scattered uv
+           (`*_scattered`), and K3's bound also with the wrapper's zero fill
+           of d_img that its times include (`bound_ms_with_fill`)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
@@ -85,15 +95,18 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def dimg_excess(GS, img, uv, g, d_img):
-    """Largest excess of |d_img − plain| over K3's tolerance 1e-5·Σ_p|g·w| +
-    1e-6 per pixel (the plain version run on |g|: the weights are
-    non-negative); <= 0 passes. Atomics add in no fixed order, and a border
-    pixel can collect thousands of terms, so a bare absolute tolerance would
-    not do."""
-    plain = GS.grid_sample_bwd_img_plain(img, uv, g)
-    scale = GS.grid_sample_bwd_img_plain(img, uv, g.abs())
-    return float(((d_img - plain).abs() - (1e-5 * scale + 1e-6)).max()), float((d_img - plain).abs().max())
+def check_dimg(img, uv, g, d_img, what: str) -> dict:
+    """K3's checks (tools.kernel_ab.dimg_checks): per pixel within
+    1e-5·Σ_p|g·w| + 1e-6 of the plain version, and Σ_p g conserved over each
+    image and channel; raises if either fails, else returns them. Atomics add
+    in no fixed order, and a border pixel can collect thousands of terms, so
+    a bare absolute tolerance would not do."""
+    from monodepth2_torch.tools.kernel_ab import dimg_checks
+
+    checks = dimg_checks(img, uv, g, d_img)
+    check(checks["excess"] <= 0, f"{what} disagrees with plain: {checks}")
+    check(checks["sum_excess"] <= 0, f"{what} does not conserve the sum of g: {checks}")
+    return checks
 
 
 def compare_kernels(torch, GS, img, uv, g):
@@ -110,18 +123,8 @@ def compare_kernels(torch, GS, img, uv, g):
     check(fwd_err <= 1e-6, f"grid_sample_fwd disagrees with plain: {fwd_err}")
     excess = float(((duv_k - duv_p).abs() - (1e-4 + 1e-5 * duv_p.abs())).max())
     check(excess <= 0, f"grid_sample_bwd_uv disagrees with plain: max err {bwd_err}")
-    img_excess, img_err = dimg_excess(GS, img, uv, g, dimg_k)
-    check(img_excess <= 0, f"grid_sample_bwd_img disagrees with plain: max err {img_err}, excess {img_excess}")
+    img_err = check_dimg(img, uv, g, dimg_k, GS.grid_sample_bwd_img.name)["max_abs_err"]
     return fwd_err, bwd_err, img_err
-
-
-def offset_view(torch, t, floats: int):
-    """t's values in a contiguous view `floats` floats into a larger buffer
-    (one point of uv is 2 floats, of g C floats)."""
-    n, p, k = t.shape
-    view = torch.empty(n * p * k + floats, dtype=t.dtype, device=t.device)[floats:].view(n, p, k)
-    view.copy_(t)
-    return view
 
 
 def reset(GS):
@@ -167,11 +170,12 @@ def main() -> int:
     # ---- build
     t = time.perf_counter()
     path = _lib.build()
-    _lib.load()
+    lib = _lib.load()
     ptxas = _lib.ptxas_report()
     check(all(r["spill_store_bytes"] == 0 for r in ptxas.values()), f"a kernel spills: {ptxas}")
+    # ptxas counts only static shared memory; K3's launch adds dynamic
     emit("build", build_s=round(time.perf_counter() - t, 3), library=path.name, flags=" ".join(_lib.NVCC_FLAGS),
-         ptxas=ptxas)
+         ptxas=ptxas, bwd_img_dynamic_smem_bytes={c: _lib.bwd_img_smem_bytes(lib, HEIGHT, WIDTH, c) for c in (1, 2, 3)})
 
     # ---- kernels against plain
     gen = torch.Generator().manual_seed(0)
@@ -199,14 +203,26 @@ def main() -> int:
             uv = warp_kernel_bench.make_uv(n, h, w, gen, True, p=p).cuda()
             g = torch.randn((n, p, c), generator=gen).cuda()
             if offset == "point":
-                uv, g = offset_view(torch, uv, 2), offset_view(torch, g, c)
+                uv, g = warp_kernel_bench.offset_view(uv, 2), warp_kernel_bench.offset_view(g, c)
             elif offset == "float":
-                uv, g = offset_view(torch, uv, 1), offset_view(torch, g, 1)
+                uv, g = warp_kernel_bench.offset_view(uv, 1), warp_kernel_bench.offset_view(g, 1)
             errs[(c, case)] = compare_kernels(torch, GS, img, uv, g)
             fe, be, ie = errs[(c, case)]
             emit("kernels", C=c, case=case, shape=[n, h, w, c], points=p,
                  uv_offset_bytes=uv.data_ptr() % 16, g_offset_bytes=g.data_ptr() % 16,
                  fwd_max_abs_err=fe, bwd_uv_max_abs_err=be, bwd_img_max_abs_err=ie)
+    # K3 alone on the cases that reach both paths of its design
+    img_errs = []
+    for c in (1, 2, 3):
+        for case in warp_kernel_bench.BWD_IMG_CASES:
+            img, uv, g = warp_kernel_bench.bwd_img_case(case, c, gen, dev)
+            d_img = GS.grid_sample_bwd_img(img, uv, g)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(d_img).all()), f"non-finite d_img ({case}, C = {c})")
+            checks = check_dimg(img, uv, g, d_img, f"{GS.grid_sample_bwd_img.name} ({case}, C = {c})")
+            img_errs.append(checks["max_abs_err"])
+            emit("kernels", kernel=GS.grid_sample_bwd_img.name, C=c, case=case, shape=list(img.shape),
+                 points=uv.shape[1], **{f"bwd_img_{k}": v for k, v in checks.items()})
 
     # ---- autograd: the op with both gradients, through all three kernels
     img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
@@ -221,8 +237,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = counts(GS)
     check(all(n == 1 for n in launches.values()), f"autograd launches {launches}, want 1 of each kernel")
-    img_excess, img_err = dimg_excess(GS, img, uv, g, grads[None][0])
-    check(img_excess <= 0, f"autograd d_img disagrees with the plain op: max err {img_err}")
+    img_err = check_dimg(img, uv, g, grads[None][0], "autograd d_img")["max_abs_err"]
     duv_k, duv_p = grads[None][1], grads["gather"][1]
     uv_err = float((duv_k - duv_p).abs().max())
     check(float(((duv_k - duv_p).abs() - (1e-4 + 1e-5 * duv_p.abs())).max()) <= 0,
@@ -345,9 +360,9 @@ def main() -> int:
          **{k: breakdown["idle_window"][k] for k in
             ("idle_share", "busy_ms_per_step", "window_ms_per_step", "device_activities_per_step")})
 
-    # ---- times at the main-path shape (near-identity uv; the image VJP at
-    # C = 1 also on scattered uv, whose clamped points pile onto border
-    # pixels), C = 1 and C = 3
+    # ---- times at the main-path shape (near-identity uv; the image VJP also
+    # on the warp bench's smooth warp and on scattered uv, whose clamped
+    # points pile onto border pixels), C = 1 and C = 3
     def timings(fn, prefix=""):
         """Clean-L2 cold, dirty-L2 cold and warm times of fn, in ms."""
         return {
@@ -374,8 +389,8 @@ def main() -> int:
         # to K3's tolerance, so that its time is a yardstick of the same
         # function (its d_uv counts border samples as outside, where the port
         # follows Pallas)
-        lib_excess, lib_err = dimg_excess(GS, img, uv, g, library_bwd(grid, [True, False])[0].permute(0, 2, 3, 1))
-        check(lib_excess <= 0, f"library d_img differs from plain at C = {c}: max err {lib_err}")
+        lib_d_img = library_bwd(grid, [True, False])[0].permute(0, 2, 3, 1)
+        lib_err = check_dimg(img, uv, g, lib_d_img, f"library d_img at C = {c}")["max_abs_err"]
         n_pts = N_WARP * P
         nbytes = warp_kernel_bench.kernel_bytes(N_WARP, HEIGHT, WIDTH, c)
         rows = {}
@@ -411,20 +426,26 @@ def main() -> int:
                 bytes=nbytes[k.name], operations=ops, shape=[N_WARP, HEIGHT, WIDTH, c], uv="near-identity",
             )
         name = GS.grid_sample_bwd_img.name
-        rows[name]["library_max_abs_err"] = lib_err
-        rows[name]["zero_fill_bytes"] = 4 * img.numel()
-        if c == 1:
-            uv_scattered = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered=True).cuda()
-            rows[name].update(
-                ms_scattered=time_ms(lambda: GS.grid_sample_bwd_img(img, uv_scattered, g), dev, 50, flush_l2=True),
-                library_ms_scattered=time_ms(
-                    lambda: library_bwd(uv_scattered.reshape(N_WARP, 1, P, 2), [True, False]), dev, 50, flush_l2=True
+        fill_bytes = 4 * img.numel()
+        rows[name].update(
+            library_max_abs_err=lib_err, zero_fill_bytes=fill_bytes,
+            bound_ms_with_fill=(nbytes[name] + fill_bytes) / H100_BYTES_PER_S * 1e3,
+        )
+        for kind, other in (
+            ("smooth", warp_kernel_bench.make_inputs(N_WARP, HEIGHT, WIDTH, c, dev)[1]),
+            ("scattered", warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered=True).cuda()),
+        ):
+            rows[name].update({
+                f"ms_{kind}": time_ms(lambda: GS.grid_sample_bwd_img(img, other, g), dev, 50, flush_l2=True),
+                f"library_ms_{kind}": time_ms(
+                    lambda: library_bwd(other.reshape(N_WARP, 1, P, 2), [True, False]), dev, 50, flush_l2=True
                 ),
-            )
+            })
         return rows
 
     rows, rows_c3 = time_rows(1), time_rows(3)
     max_errs = [max(e[i] for e in errs.values()) for i in range(3)]
+    max_errs[2] = max(max_errs[2], *img_errs)
     kernels = []
     for k, err, lines, launches in (
         (GS.grid_sample_fwd, max_errs[0], (116, 175), slice_launches),  # _fwd_kernel, _fwd_kernel_colband

@@ -137,7 +137,19 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib.grid_sample_bwd_img.restype = i32
     lib.grid_sample_error_string.argtypes = [i32]
     lib.grid_sample_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "grid_sample_bwd_img_smem_bytes"):  # absent from sources before K3's band
+        lib.grid_sample_bwd_img_smem_bytes.argtypes = [i32, i32, i32]
+        lib.grid_sample_bwd_img_smem_bytes.restype = i32
     return lib
+
+
+def bwd_img_smem_bytes(lib: ctypes.CDLL, h: int, w: int, c: int):
+    """The dynamic shared memory of each block of a K3 launch at image size
+    (h, w, c), which ptxas's report leaves out; None for a source whose K3
+    takes none."""
+    if not hasattr(lib, "grid_sample_bwd_img_smem_bytes"):
+        return None
+    return lib.grid_sample_bwd_img_smem_bytes(h, w, c)
 
 
 def load() -> ctypes.CDLL:

@@ -24,7 +24,8 @@
 //   fwd:    img 6.8 MB + uv 13.6 MB + out 6.8 MB          = 27.3 MB ->  8.1 us
 //   bwd_uv: img 6.8 MB + uv 13.6 MB + g 6.8 MB + duv 13.6 MB = 40.9 MB -> 12.2 us
 //   bwd_img: uv 13.6 MB + g 6.8 MB + dimg 6.8 MB           = 27.3 MB ->  8.1 us
-//            (+ 6.8 MB for the wrapper's zero fill of dimg)
+//            with the wrapper's zero fill of dimg (+6.8 MB)  = 34.1 MB -> 10.2 us
+//            at C = 3: 54.5 MB -> 16.3 us, with the fill 74.9 MB -> 22.4 us
 // About 25-36 fp32 operations a point are far below the 67 TFLOP/s fp32
 // rate, so all three are bound by bytes.
 //
@@ -60,14 +61,21 @@
 // (the Hopper form of the TPU's column band), with the points that fall
 // outside the band read from global memory.
 //
-// K3 (grid_sample_bwd_img), one thread a point: the image VJP is a scatter.
-// A pixel collects from every point whose taps reach it, in no order known
-// ahead, so it adds with fp32 atomics into a buffer the wrapper zeroed on
-// the same stream. Neighbouring points of a warp near the identity hit
-// neighbouring pixels, so the atomics resolve in L2 with little contention;
-// points clamped onto the border all add to a few border pixels, and those
-// atomics serialise (chip_smoke.py times both kinds of uv). Training never
-// launches the image VJP: source frames are data.
+// K3 (grid_sample_bwd_img): the image VJP is a scatter. A pixel collects
+// from every point whose taps reach it, in no order known ahead, so sums
+// meet in a buffer the wrapper zeroed on the same stream. Adding each term
+// straight into device memory makes 4·C fp32 atomics a point, a warp's adds
+// of one channel stride 4·C bytes (C times the L2 sectors), and clamped
+// points pile their adds onto the border pixels. So a block of points first
+// sums into shared memory: near the identity its points' taps fall on a
+// band of a few rows, which it accumulates channel-planar (one channel's
+// adds hit neighbouring banks) and adds into d_img once, as contiguous 16-B
+// vector reductions: the Hopper form of the TPU's column band. Where the
+// taps spread over more rows than the block's shared memory holds
+// (scattered uv), it adds to d_img directly, except on the border pixels,
+// which it sums in a shared copy first. Both are exact and live in the same
+// launch (details at the kernel); what limits it is in PERF.md. Training
+// never launches the image VJP: source frames are data.
 
 #include <cuda_runtime.h>
 
@@ -280,40 +288,246 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- K3
+//
 // d_img[n, y, x, c] = Σ_p g[n, p, c]·w_tap(p) over the 4 clamped taps of
 // every point: the scatter form of (Wy ⊙ g)·Wxᵀ (_bwd_dimg_kernel :162-163).
 // A clamped tap pair (x1 = x0 at the right border, y1 = y0 at the bottom)
 // adds both weights to one pixel, as the one-hot rows of the TPU kernel do.
-// Atomic order varies, so the sum varies in its last bits from run to run.
-__global__ void grid_sample_bwd_img_kernel(const float* __restrict__ uv,
-                                           const float* __restrict__ g,
-                                           float* __restrict__ dimg, int N,
-                                           int H, int W, int C, int P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)N * P) return;
-  const long long n = i / P;
-  const Taps t = coords(uv[2 * i], uv[2 * i + 1], H, W);
-  float* base = dimg + n * H * W * C;
-  float* r0 = base + (long long)t.y0 * W * C;
-  float* r1 = base + (long long)t.y1 * W * C;
-  const float* gi = g + i * C;
-  const float w00 = (1.0f - t.wx) * (1.0f - t.wy);
-  const float w01 = t.wx * (1.0f - t.wy);
-  const float w10 = (1.0f - t.wx) * t.wy;
-  const float w11 = t.wx * t.wy;
-  for (int c = 0; c < C; ++c) {
-    const float gc = gi[c];
-    atomicAdd(r0 + t.x0 * C + c, gc * w00);
-    atomicAdd(r0 + t.x1 * C + c, gc * w01);
-    atomicAdd(r1 + t.x0 * C + c, gc * w10);
-    atomicAdd(r1 + t.x1 * C + c, gc * w11);
+// A block takes kImgSpan consecutive points of one image (blockIdx.y), lane
+// l of a warp the points l, l + kImgThreads, ...; it runs in four phases
+// between barriers that every thread meets (no thread returns early, and
+// every branch between barriers is the same for the whole block):
+//   1. read uv (one 8-B streaming load a point where aligned) and g, and
+//      find the rows the block's clamped taps touch: the block-wide min of
+//      y0 and max of y1;
+//   2. zero the shared sums: the band of those rows, when rows·W·C floats fit
+//      the launch's shared memory (`cap`), else the 2·(H + W) border pixels;
+//   3. add the 4·C terms a point: into the band with shared-memory atomics;
+//      without a band, those on a border pixel into its shared copy and the
+//      rest straight into d_img. A term of exactly 0 (the weight of a tap
+//      past a clamped coordinate) is not added: it would change no sum;
+//   4. add the shared sums into d_img once, in NHWC order.
+// The sums are channel-planar in shared memory (plane c holds channel c of
+// every pixel), so a warp's adds to one channel of neighbouring pixels hit
+// neighbouring banks; the flush reads them back in NHWC order, so that each
+// warp's global reductions cover one contiguous run, 16 B a thread
+// (sm_90's vector atomicAdd) where d_img is 16-B aligned. Atomic order
+// varies, so the sums vary in their last bits from run to run.
+constexpr int kImgThreads = 256;
+constexpr int kImgPts = 4;
+constexpr int kImgSpan = kImgThreads * kImgPts;
+// Rows of band the launch makes room for beyond the at most kImgSpan / W + 2
+// rows its points sit on: a warp within ±3 px of the identity touches 6 more
+// (y0 from 3 rows above a point's row, y1 to 3 below).
+constexpr int kBandSlackRows = 6;
+// The most dynamic shared memory a block takes: two blocks fit an SM.
+constexpr int kMaxSumBytes = 112 * 1024;
+
+// Pixels of the shared border copy: row 0, row H − 1, then columns 0 and
+// W − 1 between them.
+__host__ __device__ __forceinline__ int border_pixels(int H, int W) {
+  return 2 * W + 2 * (H > 2 ? H - 2 : 0);
+}
+
+// The pixel's place in the border copy, or -1 off the border.
+__device__ __forceinline__ int border_index(int x, int y, int H, int W) {
+  if (y == 0) return x;
+  if (y == H - 1) return W + x;
+  if (x == 0) return 2 * W + y - 1;
+  if (x == W - 1) return 2 * W + H - 2 + y - 1;
+  return -1;
+}
+
+// Calls add(x, y, c, term) for each of the 4·C terms of this thread's
+// points (point p0 + k·kImgThreads), except a term of exactly 0 (the weight
+// of a tap past a clamped coordinate), which would change no sum. CT > 0:
+// the points' g in gv; CT = 0: read here.
+template <int CT, class Add>
+__device__ __forceinline__ void for_each_term(const float2 (&u)[kImgPts],
+                                              const float (&gv)[kImgPts][CT > 0 ? CT : 1],
+                                              const float* __restrict__ gn, int p0, int P, int H,
+                                              int W, int nc, Add add) {
+  constexpr int KC = CT > 0 ? CT : 1;
+#pragma unroll
+  for (int k = 0; k < kImgPts; ++k) {
+    const int p = p0 + k * kImgThreads;
+    if (p >= P) continue;
+    const Taps t = coords(u[k].x, u[k].y, H, W);
+    const float w00 = (1.0f - t.wx) * (1.0f - t.wy);
+    const float w01 = t.wx * (1.0f - t.wy);
+    const float w10 = (1.0f - t.wx) * t.wy;
+    const float w11 = t.wx * t.wy;
+    for (int c0 = 0; c0 < nc; c0 += KC) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const float gc = CT > 0 ? gv[k][c] : __ldcs(gn + p * nc + c0);
+        const float terms[4] = {gc * w00, gc * w01, gc * w10, gc * w11};
+        const int xs[4] = {t.x0, t.x1, t.x0, t.x1};
+        const int ys[4] = {t.y0, t.y0, t.y1, t.y1};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (terms[j] != 0.0f) add(xs[j], ys[j], c0 + c, terms[j]);
+      }
+    }
   }
 }
 
-constexpr int kImgThreads = 256;
+// Adds npix pixels of planar shared sums (channel c of pixel i at
+// src[c·plane + i]) into dst, nc floats a pixel; sums of 0 are skipped. The
+// whole block takes part: 16-B vector reductions from the first 16-B
+// aligned float of dst, scalar ones before and after.
+template <int CT>
+__device__ void flush_planar(const float* src, int plane, int npix, float* dst, int nc_run) {
+  const int nc = CT > 0 ? CT : nc_run;
+  const int total = npix * nc;
+  auto value = [&](int e) {
+    const int i = e / nc;
+    return src[(e - i * nc) * plane + i];
+  };
+  const int head = min(total, (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4);
+  const int nvec = (total - head) / 4;
+  for (int e = threadIdx.x; e < head; e += kImgThreads) {
+    const float v = value(e);
+    if (v != 0.0f) atomicAdd(dst + e, v);
+  }
+  for (int q = threadIdx.x; q < nvec; q += kImgThreads) {
+    const int e = head + 4 * q;
+    const float4 v = make_float4(value(e), value(e + 1), value(e + 2), value(e + 3));
+    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+      atomicAdd(reinterpret_cast<float4*>(dst + e), v);
+  }
+  for (int e = head + 4 * nvec + threadIdx.x; e < total; e += kImgThreads) {
+    const float v = value(e);
+    if (v != 0.0f) atomicAdd(dst + e, v);
+  }
+}
 
-inline int img_blocks_for(long long total) {
-  return (int)((total + kImgThreads - 1) / kImgThreads);
+// CT > 0: C is CT, and a thread keeps its points' g in registers from phase
+// 1; CT = 0: any other C, g read in phase 3. `cap` is the floats of shared
+// memory the launch gave the block (a multiple of 4).
+template <int CT>
+__global__ void __launch_bounds__(kImgThreads)
+    grid_sample_bwd_img_kernel(const float* __restrict__ uv,
+                               const float* __restrict__ g,
+                               float* __restrict__ dimg, int H, int W, int C,
+                               int P, int vec, int cap) {
+  extern __shared__ float4 sums4[];
+  __shared__ int s_lo, s_hi;
+  constexpr int KC = CT > 0 ? CT : 1;
+  const int nc = CT > 0 ? CT : C;
+  const int n = blockIdx.y;
+  const int p0 = blockIdx.x * kImgSpan + threadIdx.x;
+  const float* uvn = uv + n * P * 2;
+  const float* gn = g + n * P * nc;
+
+  // 1. uv and g in; the rows of the block's taps. A point past P (the
+  // ragged tail) reads point P − 1 and counts for nothing.
+  if (threadIdx.x == 0) {
+    s_lo = H;
+    s_hi = -1;
+  }
+  float2 u[kImgPts];
+  float gv[kImgPts][KC];
+#pragma unroll
+  for (int k = 0; k < kImgPts; ++k) {
+    const int p = min(p0 + k * kImgThreads, P - 1);
+    u[k] = vec ? __ldcs(reinterpret_cast<const float2*>(uvn) + p)
+               : make_float2(__ldcs(uvn + 2 * p), __ldcs(uvn + 2 * p + 1));
+    if (CT > 0) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) gv[k][c] = __ldcs(gn + p * nc + c);
+    }
+  }
+  int lo = H, hi = -1;
+#pragma unroll
+  for (int k = 0; k < kImgPts; ++k) {
+    if (p0 + k * kImgThreads < P) {
+      const Taps t = coords(u[k].x, u[k].y, H, W);
+      lo = min(lo, t.y0);
+      hi = max(hi, t.y1);
+    }
+  }
+  __syncthreads();
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, hi);
+  }
+  __syncthreads();
+
+  // 2. zero the band (every block has a point, so s_lo <= s_hi) or the
+  // border copy
+  float* sums = reinterpret_cast<float*>(sums4);
+  float* dimgn = dimg + n * H * W * nc;
+  const int row0 = s_lo;
+  const int rows = s_hi - s_lo + 1;
+  const bool band = rows * W * nc <= cap;
+  const bool border = !band && border_pixels(H, W) * nc <= cap;
+  const int plane = band ? rows * W : border_pixels(H, W);
+  const int used = band || border ? plane * nc : 0;
+  for (int i = threadIdx.x; i < (used + 3) / 4; i += kImgThreads) sums4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+
+  // 3. the terms
+  // (sm_90 has no shared-memory fp32 add: each shared atomicAdd is a
+  // compare-and-swap loop, ATOMS.CAST.SPIN, the kernel's largest cost; the
+  // two paths are separate loops, so neither carries the other's branches)
+  if (band) {
+    for_each_term<CT>(u, gv, gn, p0, P, H, W, nc, [&](int x, int y, int c, float term) {
+      atomicAdd(sums + c * plane + (y - row0) * W + x, term);
+    });
+  } else {
+    for_each_term<CT>(u, gv, gn, p0, P, H, W, nc, [&](int x, int y, int c, float term) {
+      const int b = border ? border_index(x, y, H, W) : -1;
+      if (b >= 0)
+        atomicAdd(sums + c * plane + b, term);
+      else
+        atomicAdd(dimgn + (y * W + x) * nc + c, term);
+    });
+  }
+  __syncthreads();
+
+  // 4. the shared sums into d_img: the band's rows are one contiguous run of
+  // d_img; of the border copy, rows 0 and H − 1 are, the columns are not
+  if (band) {
+    flush_planar<CT>(sums, plane, rows * W, dimgn + row0 * W * nc, nc);
+  } else if (border) {
+    flush_planar<CT>(sums, plane, W, dimgn, nc);
+    if (H > 1) flush_planar<CT>(sums + W, plane, W, dimgn + (H - 1) * W * nc, nc);
+    const int inner = H > 2 ? H - 2 : 0;
+    for (int e = threadIdx.x; e < 2 * inner * nc; e += kImgThreads) {
+      const int i = e / nc, c = e - i * nc;
+      const int side = i / inner, y = 1 + i - side * inner;
+      const float v = sums[c * plane + 2 * W + i];
+      if (v != 0.0f && (side == 0 || W > 1)) atomicAdd(dimgn + (y * W + (side ? W - 1 : 0)) * nc + c, v);
+    }
+  }
+}
+
+// Floats of shared memory a K3 launch gives each block: the band rows a
+// near-identity warp needs, or the border copy if larger, within
+// kMaxSumBytes; a multiple of 4 (the zero fill writes float4s).
+inline int sum_floats(int H, int W, int C) {
+  const long long span_rows = kImgSpan / W + 2 + kBandSlackRows;
+  const long long band = (span_rows < H ? span_rows : H) * W * C;
+  const long long border = (long long)border_pixels(H, W) * C;
+  const long long want = band > border ? band : border;
+  const long long most = kMaxSumBytes / 4;
+  return (int)((want < most ? want : most) & ~3LL);
+}
+
+template <int CT>
+int launch_bwd_img(dim3 grid, int smem, cudaStream_t stream, const float* u, const float* gg, float* d,
+                   int H, int W, int C, int P, int vec, int cap) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(grid_sample_bwd_img_kernel<CT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  grid_sample_bwd_img_kernel<CT><<<grid, kImgThreads, smem, stream>>>(u, gg, d, H, W, C, P, vec, cap);
+  return 0;
 }
 
 // K1/K2's grid for n images: P in spans of kSpan points along x, the
@@ -380,13 +594,27 @@ int grid_sample_bwd_uv(const void* img, const void* uv, const void* g,
 // dimg must hold zeros, written on the same stream before this launch.
 int grid_sample_bwd_img(const void* uv, const void* g, void* dimg, int N, int H,
                         int W, int C, int P, cudaStream_t stream) {
-  const long long total = (long long)N * P;
-  if (total == 0) return 0;
-  grid_sample_bwd_img_kernel<<<img_blocks_for(total), kImgThreads, 0, stream>>>(
-      static_cast<const float*>(uv), static_cast<const float*>(g),
-      static_cast<float*>(dimg), N, H, W, C, P);
+  if ((long long)N * P == 0) return 0;
+  const int vec = aligned8(uv);
+  const int cap = sum_floats(H, W, C);
+  const int smem = 4 * cap;
+  for (int n0 = 0; n0 < N; n0 += kMaxGridY) {
+    const int n = N - n0 < kMaxGridY ? N - n0 : kMaxGridY;
+    const float* u = static_cast<const float*>(uv) + (long long)n0 * P * 2;
+    const float* gg = static_cast<const float*>(g) + (long long)n0 * P * C;
+    float* d = static_cast<float*>(dimg) + (long long)n0 * H * W * C;
+    const dim3 grid((unsigned)((P + kImgSpan - 1) / kImgSpan), (unsigned)n);
+    const int code = C == 1   ? launch_bwd_img<1>(grid, smem, stream, u, gg, d, H, W, C, P, vec, cap)
+                     : C == 3 ? launch_bwd_img<3>(grid, smem, stream, u, gg, d, H, W, C, P, vec, cap)
+                              : launch_bwd_img<0>(grid, smem, stream, u, gg, d, H, W, C, P, vec, cap);
+    if (code != 0) return code;
+  }
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory, in bytes, of each block of a K3 launch at this
+// image size (ptxas's report counts only the static part).
+int grid_sample_bwd_img_smem_bytes(int H, int W, int C) { return 4 * sum_floats(H, W, C); }
 
 const char* grid_sample_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -83,16 +83,18 @@ def make_inputs(n: int, h: int, w: int, c: int, device: torch.device, seed: int 
 def make_uv(n: int, h: int, w: int, generator: torch.Generator, scattered: bool, p: Optional[int] = None):
     """uv (n, p, 2) on the CPU, p = h·w by default: `scattered` draws every
     point uniformly over [-1.2, 1.2]²; otherwise a warp near the identity, as
-    training sees, with shifts of up to ±3 px a point (p = h·w only). Either
-    way the first points of each image are set exactly on each edge and
-    corner, and beyond them. The inputs of chip_smoke.py's kernel checks and
-    times, and of tools.kernel_ab."""
+    training sees, with shifts of up to ±3 px a point (point i near pixel i
+    in raster order, so p <= h·w). Either way the first points of each image
+    are set exactly on each edge and corner, and beyond them. The inputs of
+    chip_smoke.py's kernel checks and times, and of tools.kernel_ab."""
     p = h * w if p is None else p
     if scattered:
         uv = torch.rand((n, p, 2), generator=generator) * 2.4 - 1.2
     else:
+        if p > h * w:
+            raise ValueError(f"a near-identity warp has at most h·w = {h * w} points, got {p}")
         ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-        pix = torch.stack([xs, ys], -1).reshape(1, p, 2).float()
+        pix = torch.stack([xs, ys], -1).reshape(1, h * w, 2)[:, :p].float()
         pix = pix + (torch.rand((n, p, 2), generator=generator) * 6 - 3)
         uv = pix / torch.tensor([w - 1.0, h - 1.0]) * 2 - 1
     edges = torch.tensor(
@@ -101,6 +103,87 @@ def make_uv(n: int, h: int, w: int, generator: torch.Generator, scattered: bool,
     )
     uv[:, : len(edges)] = edges
     return uv.contiguous()
+
+
+def offset_view(t: torch.Tensor, floats: int) -> torch.Tensor:
+    """t's values in a contiguous view `floats` floats into a larger buffer on
+    t's device (one point of uv is 2 floats, of g C floats), so not aligned
+    as a fresh tensor is."""
+    n, p, k = t.shape
+    view = torch.empty(n * p * k + floats, dtype=t.dtype, device=t.device)[floats:].view(n, p, k)
+    view.copy_(t)
+    return view
+
+
+# The image VJP's checks (K3): both paths of its design — the band of rows
+# summed in shared memory, and direct adds with a shared copy of the border
+# — and their edges
+BWD_IMG_CASES = (
+    "near-identity", "exact identity", "band heights", "scattered", "corners",
+    "P not a multiple of W", "odd P", "views one point in", "views one float in",
+)
+
+
+def bwd_img_case(name: str, c: int, generator: torch.Generator, device, h: int = 128, w: int = 416):
+    """(img, uv, g) on `device` for one of BWD_IMG_CASES at C = c, at the
+    main-path image size h×w (32 images, or fewer where the case needs no
+    more):
+
+      near-identity          make_uv's jittered identity, edge points first
+      exact identity         every point on a pixel (wx = wy = 0), so the
+                             last row of each block's band gets only terms of 0
+      band heights           image i moves every 512th point i rows down: bands
+                             of every height from the block's own to 23 rows
+                             more, past what a block's shared memory holds
+      scattered              uniform over [-1.2, 1.2]²: clamped points pile
+                             onto the border
+      corners                every point beyond a corner
+      P not a multiple of W  near-identity, h·w − 37 points: the last block
+                             starts mid-row, and P is odd
+      odd P                  near-identity, 599 points of a 20×30 image
+      views one point in     near-identity, uv and g one point into a larger
+                             buffer (not 16-B aligned)
+      views one float in     near-identity, h·w − 3 points, uv and g one float
+                             in (uv not 8-B aligned)
+    """
+    n = 32
+    if name == "near-identity":
+        uv = make_uv(n, h, w, generator, scattered=False)
+    elif name == "exact identity":
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        pix = torch.stack([xs, ys], -1).reshape(1, h * w, 2).float()
+        uv = (pix / torch.tensor([w - 1.0, h - 1.0]) * 2 - 1).repeat(n, 1, 1)
+    elif name == "band heights":
+        n = 24
+        uv = make_uv(n, h, w, generator, scattered=False)
+        uv[:, :14] = uv[:, 14:28]  # no edge points: the moved points alone widen the bands
+        shift = torch.arange(n, dtype=torch.float32)[:, None] * 2 / (h - 1)
+        uv[:, ::512, 1] = (uv[:, ::512, 1] + shift).clamp(max=1.0)
+    elif name == "scattered":
+        uv = make_uv(n, h, w, generator, scattered=True)
+    elif name == "corners":
+        n = 4
+        corners = torch.tensor([[-2.0, -2.0], [2.0, 2.0], [-2.0, 2.0], [2.0, -2.0]])
+        uv = corners.repeat(n, (h * w + 3) // 4, 1)[:, : h * w]
+    elif name == "P not a multiple of W":
+        n = 4
+        uv = make_uv(n, h, w, generator, scattered=False, p=h * w - 37)
+    elif name == "odd P":
+        n, h, w = 3, 20, 30
+        uv = make_uv(n, h, w, generator, scattered=False, p=599)
+    elif name in ("views one point in", "views one float in"):
+        n = 4
+        uv = make_uv(n, h, w, generator, scattered=False, p=h * w - (3 if name.endswith("float in") else 0))
+    else:
+        raise ValueError(f"unknown case {name!r}; choose from {BWD_IMG_CASES}")
+    img = torch.rand((n, h, w, c), generator=generator).to(device)
+    g = torch.randn((n, uv.shape[1], c), generator=generator).to(device)
+    uv = uv.contiguous().to(device)
+    if name == "views one point in":
+        uv, g = offset_view(uv, 2), offset_view(g, c)
+    elif name == "views one float in":
+        uv, g = offset_view(uv, 1), offset_view(g, 1)
+    return img, uv, g
 
 
 def method_fns(method: str, img, uv, g):

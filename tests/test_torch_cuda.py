@@ -12,6 +12,8 @@ import importlib
 import pytest
 import torch
 
+from monodepth2_torch.tools import kernel_ab, warp_kernel_bench
+
 GS = importlib.import_module("monodepth2_torch.ops.grid_sample")
 
 pytestmark = pytest.mark.gpu
@@ -35,23 +37,14 @@ def _case(dev, n, h, w, c, seed=0, p=None):
     return img.to(dev), uv.to(dev), g.to(dev)
 
 
-def _offset_view(t, floats):
-    """t's values in a contiguous view `floats` floats into a larger buffer:
-    one point of uv is 8 B, of g 4·C B."""
-    n, p, k = t.shape
-    view = torch.empty(n * p * k + floats, dtype=t.dtype, device=t.device)[floats:].view(n, p, k)
-    view.copy_(t)
-    return view
-
-
 def _assert_dimg_close(img, uv, g, d_img):
-    """K3's tolerance: atomics sum in no fixed order, so each pixel may differ
-    from the plain sum by 1e-5 of the sum of its terms' magnitudes, Σ_p |g·w|
-    (the plain version run on |g|: the weights are non-negative), + 1e-6."""
-    plain = GS.grid_sample_bwd_img_plain(img, uv, g)
-    scale = GS.grid_sample_bwd_img_plain(img, uv, g.abs())
-    excess = (d_img - plain).abs() - (1e-5 * scale + 1e-6)
-    assert float(excess.max()) <= 0, float((d_img - plain).abs().max())
+    """K3's tolerance (tools.kernel_ab.dimg_checks): atomics sum in no fixed
+    order, so each pixel may differ from the plain sum by 1e-5 of the sum of
+    its terms' magnitudes, Σ_p |g·w|, + 1e-6; and d_img conserves Σ_p g over
+    each image and channel (in float64, within that tolerance summed over
+    the pixels)."""
+    checks = kernel_ab.dimg_checks(img, uv, g, d_img)
+    assert checks["excess"] <= 0 and checks["sum_excess"] <= 0, checks
 
 
 @pytest.mark.parametrize("shape", [(2, 12, 20, 1), (2, 12, 20, 3), (32, 128, 416, 1), (32, 128, 416, 3)])
@@ -87,10 +80,10 @@ def test_kernels_match_plain_on_ragged_and_offset_inputs(dev, case, c):
     offset = kw.pop("offset", None)
     img, uv, g = _case(dev, c=c, **kw)
     if offset == "point":
-        uv, g = _offset_view(uv, 2), _offset_view(g, c)
+        uv, g = warp_kernel_bench.offset_view(uv, 2), warp_kernel_bench.offset_view(g, c)
         assert uv.is_contiguous() and uv.data_ptr() % 16 and g.data_ptr() % 16
     elif offset == "float":
-        uv, g = _offset_view(uv, 1), _offset_view(g, 1)
+        uv, g = warp_kernel_bench.offset_view(uv, 1), warp_kernel_bench.offset_view(g, 1)
         assert uv.is_contiguous() and uv.data_ptr() % 8
     before = [k.launches for k in GS.KERNELS]
     torch.testing.assert_close(GS.grid_sample_fwd(img, uv), GS.grid_sample_fwd_plain(img, uv), rtol=0, atol=1e-6)
@@ -100,6 +93,22 @@ def test_kernels_match_plain_on_ragged_and_offset_inputs(dev, case, c):
     _assert_dimg_close(img, uv, g, GS.grid_sample_bwd_img(img, uv, g))
     torch.cuda.synchronize()
     assert [k.launches for k in GS.KERNELS] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("case", warp_kernel_bench.BWD_IMG_CASES)
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_image_vjp_on_both_paths_and_their_edges(dev, case, c):
+    """K3 sums a block's terms in a band of rows in shared memory where its
+    taps fit one, and otherwise adds them to d_img directly, border pixels
+    through a shared copy: each case (warp_kernel_bench.bwd_img_case) is
+    within K3's tolerance."""
+    img, uv, g = warp_kernel_bench.bwd_img_case(case, c, torch.Generator().manual_seed(0), dev)
+    before = GS.grid_sample_bwd_img.launches
+    d_img = GS.grid_sample_bwd_img(img, uv, g)
+    torch.cuda.synchronize()
+    assert GS.grid_sample_bwd_img.launches == before + 1
+    assert bool(torch.isfinite(d_img).all())
+    _assert_dimg_close(img, uv, g, d_img)
 
 
 def test_image_gradient_clamped_taps_add_both_weights(dev):

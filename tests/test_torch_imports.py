@@ -38,7 +38,8 @@ def test_port_imports_without_jax():
         assert not loaded, loaded
         measuring = {{"monodepth2_torch.bench", "monodepth2_torch.utils", "monodepth2_torch.utils.profiler",
                      "monodepth2_torch.tools", "monodepth2_torch.tools.warp_kernel_bench",
-                     "monodepth2_torch.tools.profile_breakdown", "monodepth2_torch.tools.kernel_ab"}}
+                     "monodepth2_torch.tools.profile_breakdown", "monodepth2_torch.tools.kernel_ab",
+                     "monodepth2_torch.tools.k3_sweep"}}
         assert measuring <= set(names), measuring - set(names)
         print(len(names), "modules")
     """)

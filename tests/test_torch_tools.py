@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from monodepth2_torch import bench
-from monodepth2_torch.tools import kernel_ab, profile_breakdown, warp_kernel_bench
+from monodepth2_torch.tools import k3_sweep, kernel_ab, profile_breakdown, warp_kernel_bench
 from monodepth2_torch.utils import profiler
 from monodepth2_tpu.utils import profiler as jax_profiler
 
@@ -207,6 +207,130 @@ def test_make_uv(scattered):
         assert float(shift[:, 14:].abs().max()) <= 3 + 1e-4
     odd = warp_kernel_bench.make_uv(n, h, w, torch.Generator().manual_seed(0), True, p=37)
     assert odd.shape == (n, 37, 2)
+
+
+def test_make_uv_near_identity_takes_the_first_points_of_the_raster():
+    """With p < h·w points a near-identity warp keeps pixel i's point i (the
+    cases with P not a multiple of W); more points than pixels is refused."""
+    n, h, w = 2, 8, 12
+    uv = warp_kernel_bench.make_uv(n, h, w, torch.Generator().manual_seed(0), False, p=41)
+    assert uv.shape == (n, 41, 2) and uv.is_contiguous()
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    pix = (uv + 1) / 2 * torch.tensor([w - 1.0, h - 1.0])
+    shift = pix - torch.stack([xs, ys], -1).reshape(1, h * w, 2)[:, :41]
+    assert float(shift[:, 14:].abs().max()) <= 3 + 1e-4
+    with pytest.raises(ValueError):
+        warp_kernel_bench.make_uv(n, h, w, torch.Generator().manual_seed(0), False, p=h * w + 1)
+
+
+def test_offset_view_is_a_misaligned_copy():
+    t = torch.arange(24.0).reshape(2, 4, 3)
+    for floats in (1, 2, 3):
+        view = warp_kernel_bench.offset_view(t, floats)
+        assert torch.equal(view, t) and view.is_contiguous()
+        assert view.data_ptr() - view.untyped_storage().data_ptr() == 4 * floats
+
+
+@pytest.mark.parametrize("case", warp_kernel_bench.BWD_IMG_CASES)
+def test_bwd_img_case_builds_what_it_names(case):
+    """The K3 cases of the card's tests and chip_smoke.py, at a small image:
+    shapes, alignment, and the band heights and corners they are built for."""
+    c, h, w = 3, 40, 64
+    img, uv, g = warp_kernel_bench.bwd_img_case(case, c, torch.Generator().manual_seed(0), "cpu", h=h, w=w)
+    n, p = uv.shape[:2]
+    assert img.shape == (n, *((20, 30) if case == "odd P" else (h, w)), c)
+    assert g.shape == (n, p, c) and uv.shape == (n, p, 2)
+    assert uv.is_contiguous() and g.is_contiguous()
+    expected_p = {"odd P": 599, "P not a multiple of W": h * w - 37, "views one float in": h * w - 3}
+    assert p == expected_p.get(case, h * w)
+    if case == "views one point in":
+        assert uv.data_ptr() % 16 == 8 and g.data_ptr() % 16 == 12
+    elif case == "views one float in":
+        assert uv.data_ptr() % 8 == 4 and g.data_ptr() % 8 == 4
+    else:
+        assert uv.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    if case == "band heights":
+        # image i's every 512th point sits i rows (clamped) below its pixel
+        rows = (uv[:, ::512, 1] + 1) / 2 * (h - 1) - (torch.arange(0, p, 512) // w).float()
+        assert float(rows[0].abs().max()) <= 3 + 1e-4
+        assert float(rows[5].min()) >= 5 - 3 - 1e-4
+    if case == "corners":
+        assert bool((uv.abs() == 2).all())
+    if case == "exact identity":
+        pix = (uv + 1) / 2 * torch.tensor([w - 1.0, h - 1.0])
+        assert float((pix - pix.round()).abs().max()) < 1e-4
+    with pytest.raises(ValueError):
+        warp_kernel_bench.bwd_img_case("no such case", c, torch.Generator(), "cpu")
+
+
+def test_kernel_ab_bounds_and_shares():
+    """K3's two bounds at the main-path shape (PERF.md's 8.14 / 10.17 µs at
+    C = 1, 16.28 / 22.38 µs at C = 3), and each share in the summary as the
+    bound over the mean clean time of the version's turns."""
+    b1, b3 = kernel_ab.bounds_us(32, 128, 416, 1), kernel_ab.bounds_us(32, 128, 416, 3)
+    k3 = kernel_ab.K3
+    assert b1[k3] == pytest.approx(8.138, abs=1e-3) and b1[f"{k3}_with_fill"] == pytest.approx(10.173, abs=1e-3)
+    assert b3[k3] == pytest.approx(16.276, abs=1e-3) and b3[f"{k3}_with_fill"] == pytest.approx(22.380, abs=1e-3)
+    assert b1["grid_sample_bwd_uv"] == pytest.approx(12.207, abs=1e-3)
+
+    def times(ms):  # clean ms; dirty 1 µs more, warm half
+        return {"clean": ms, "dirty": ms + 0.001, "warm": ms / 2}
+
+    turns = []
+    for version, ms in (("old", 0.040), ("new", 0.020), ("new", 0.030), ("old", 0.060)):
+        turn = {"C": 1, "version": version}
+        for k in kernel_ab.KERNELS:
+            if k == k3:
+                turn[k] = {kind: times(ms) for kind in kernel_ab.UV_KINDS}
+                turn[f"library_{k}"] = {kind: times(0.080) for kind in kernel_ab.UV_KINDS}
+            else:
+                turn[k], turn[f"library_{k}"] = times(ms), times(0.080)
+        turns.append(turn)
+    summary = kernel_ab.summarize(1, turns, ["old", "new"], b1, "card, 700.00 W")
+    assert summary[f"{k3}_bound_us"] == b1[k3] and summary[f"{k3}_bound_with_fill_us"] == b1[f"{k3}_with_fill"]
+    for kind in kernel_ab.UV_KINDS:
+        tag = f"{k3}_{kind}"
+        assert summary[f"{tag}_new_clean_us"] == pytest.approx([20.0, 30.0])
+        assert summary[f"{tag}_old_warm_us"] == pytest.approx([20.0, 30.0])
+        assert summary[f"{tag}_library_dirty_us"] == pytest.approx([81.0] * 4)
+        assert summary[f"{tag}_new_clean_share_of_bound"] == pytest.approx(b1[k3] / 25.0)
+        assert summary[f"{tag}_old_clean_share_of_bound_with_fill"] == pytest.approx(b1[f"{k3}_with_fill"] / 50.0)
+        assert summary[f"{tag}_library_clean_share_of_bound"] == pytest.approx(b1[k3] / 80.0)
+    assert summary["grid_sample_fwd_new_clean_share_of_bound"] == pytest.approx(b1["grid_sample_fwd"] / 25.0)
+    assert "grid_sample_fwd_bound_with_fill_us" not in summary
+
+
+def test_bwd_img_smem_bytes_reads_the_source_or_none():
+    from types import SimpleNamespace
+
+    from monodepth2_torch.ops.cuda import _lib
+
+    assert _lib.bwd_img_smem_bytes(SimpleNamespace(), 128, 416, 3) is None
+    lib = SimpleNamespace(grid_sample_bwd_img_smem_bytes=lambda h, w, c: 4 * h * w * c)
+    assert _lib.bwd_img_smem_bytes(lib, 2, 3, 1) == 24
+
+
+@pytest.mark.parametrize("name", sorted(k3_sweep.VARIANTS))
+def test_k3_sweep_variant_edits_the_current_source(name):
+    """Each variant's edits match the current grid_sample.cu once and change
+    it; an edit that no longer matches raises rather than timing the current
+    kernel under the variant's name."""
+    from monodepth2_torch.ops.cuda import _lib
+
+    source = _lib.SOURCE.read_text()
+    changed = k3_sweep.variant_source(name, source)
+    assert changed != source
+    with pytest.raises(ValueError):
+        k3_sweep.variant_source(name, source.replace("constexpr int k", "constexpr int q").replace("  ", " "))
+
+
+def test_k3_sweep_needs_a_card():
+    assert set(k3_sweep.PROBES) <= set(k3_sweep.VARIANTS)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for device in ("cuda", "cpu"):
+        with pytest.raises(RuntimeError):
+            k3_sweep.main(["--device", device])
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
