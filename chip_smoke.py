@@ -36,16 +36,47 @@ wall time:
            0 × K3 (source frames are data). Beside each, a step from the same
            state through the plain grid sample: losses agree to 1e-4 rel, all
            parameter grads to 1e-2 relative L2
+  graph    the scanned train step (training.make_scanned_train_step) in
+           fp32, TF32 off, cuDNN deterministic, at the slice's size with
+           disp_reg and a warmup and decay that all change while it replays:
+           3 eager warm-up micro-steps, then 10 calls of one micro-step, the
+           first of which captures the CUDA graph. Before each, an eager twin
+           is loaded from the graph's state (a copy, not an alias); the
+           replay's loss agrees with the twin's to 1e-4 rel, the lr Adam
+           read (its param group's lr tensor) and the disp_reg weight equal
+           lr_at and the float formula, the params after the update are
+           within 1e-6 relative L2 of the twin's (one update moves them by
+           ~5e-5 or more), Adam's moments within 1e-4 and its step counts
+           equal. Then one call of 10 replays in a profiler window: by
+           kernel name, K1 and K2 once a step and K3 never (a replay runs no
+           Python, so the wrappers' counters cannot see it)
   reference  the simple_depth fit through the kernels against the committed
            golden trajectories tests/golden/simple_depth_golden.npz (96×32,
            500 iterations) and simple_depth_golden_416x128.npz (the
            reference shape, 200 iterations), with the tolerances of
            tests/test_simple_depth_golden.py
+  graph_bf16  the same configuration in bf16 (the network under autocast):
+           30 replayed micro-steps, all finite, and their ms/step
+  fit      training.loop.fit, the trainer's entry point (this slice's main
+           path), on SyntheticDriving(n=48, 416×128), batch 4, the config of
+           configs/kitti_ssl.json (bf16, steps_per_call 10) with log_every 5,
+           save_every 10: to max_steps 20, then a second fit to 30 that
+           resumes. The first fit runs in a profiler window, its launch
+           counters reset just before and read just after: the wrappers run
+           (eager warm-up steps and the capture) for K1 and K2, not K3, and
+           by kernel name K1 and K2 are launched once a step, replays
+           included, and K3 never. Checks the checkpoint files, the
+           metrics.jsonl steps (those _crossed gives), the resumed step and
+           data cursor, and a bitwise round-trip of params, stats and Adam
+           state through save and load
   warp_bench  python -m monodepth2_torch.tools.warp_kernel_bench, in process
            and shortened; its counts must show K1, K2 and K3 launched
-  bench    python -m monodepth2_torch.bench (bf16 network), shortened; K1 and
-           K2 launched, K3 not
-  breakdown  python -m monodepth2_torch.tools.profile_breakdown, shortened
+  bench    python -m monodepth2_torch.bench (configs/kitti_ssl.json, bf16
+           network), shortened: eager and graph windows in turns; K1 and K2
+           launched, K3 not
+  breakdown  python -m monodepth2_torch.tools.profile_breakdown, shortened,
+           with its graph_step block: by kernel name K1 = K2 = 1 and K3 = 0
+           a replayed step
   times    per kernel at the main-path shape, C = 1 and (under "C3") C = 3:
            kernel and library (F.grid_sample, aten.grid_sampler_2d_backward
            with the one output the kernel computes) times with the L2
@@ -58,17 +89,23 @@ wall time:
            (`*_scattered`), and K3's bound also with the wrapper's zero fill
            of d_img that its times include (`bound_ms_with_fill`)
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, where the `launches` of K1
+and K2 are the first fit's, counted by kernel name, and K3's the warp
+bench's (training never runs it); the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
 Without a CUDA device, or beside no monodepth2_torch package, it prints no
-result and exits nonzero. Starts no thread; every subprocess has a timeout.
+result and exits nonzero. Every subprocess has a timeout; the only threads
+are fit's data loader's, daemon threads that stop once fit drops its
+iterator.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -134,6 +171,237 @@ def reset(GS):
 
 def counts(GS):
     return {k.name: k.launches for k in GS.KERNELS}
+
+
+def load_twin(twin, state) -> None:
+    """Make `twin` a copy of `state`: a deepcopy of the optimizer's state,
+    since Optimizer.load_state_dict keeps the very tensors it is given (the
+    twin's Adam would otherwise update the state's moments too)."""
+    twin.model.load_state_dict(state.model.state_dict())
+    twin.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    twin.step = state.step
+
+
+def rel_l2(xs, ys) -> float:
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    import torch
+
+    x = torch.cat([t.detach().flatten().double() for t in xs])
+    y = torch.cat([t.detach().flatten().double() for t in ys])
+    return float((x - y).norm() / y.norm())
+
+
+def adam_state(state, key) -> list:
+    return [state.optimizer.state[p][key] for p in state.model.parameters()]
+
+
+def graph_config(TrainConfig, **kw):
+    """The graph phases' config: the slice's size, disp_reg on, and a warmup
+    and decay that change the lr while the graph replays steps 3-12."""
+    return TrainConfig(
+        target_size=(WIDTH, HEIGHT), batch_size=BATCH, in_channels=1, steps_per_call=10,
+        disp_reg=0.01, disp_reg_steps=12, lr_warmup_steps=5, lr_decay_steps=9, lr_decay_factor=0.1, **kw,
+    )
+
+
+def graph_phase(torch, np, GS, ctx, device="cuda") -> dict:
+    """Replayed fp32 micro-steps against an eager twin from the same state,
+    and the warp kernels counted by name in a window of replays."""
+    from monodepth2_torch.device import synchronize
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.tools.profile_breakdown import kernel_counts
+    from monodepth2_torch.training import TrainConfig, create_train_state, make_scanned_train_step, make_train_step
+    from monodepth2_torch.training.state import WARMUP_STEPS, lr_at
+    from monodepth2_torch.utils.profiler import trace
+
+    cfg = graph_config(TrainConfig)
+    state = create_train_state(Model.create(depth=18, in_channels=1, device=device), cfg)
+    twin = create_train_state(Model.create(depth=18, in_channels=1, device=device), cfg)
+    scanned, eager = make_scanned_train_step(ctx, cfg), make_train_step(ctx, cfg)
+    n_replays = 10
+    rng = np.random.default_rng(1)
+    stack = torch.from_numpy(
+        rng.uniform(size=(WARMUP_STEPS + 2 * n_replays, BATCH, 3, HEIGHT, WIDTH, 1)).astype(np.float32)
+    ).to(device)
+    reset(GS)
+    scanned(state, stack[:WARMUP_STEPS])  # eager warm-up micro-steps
+    rows = []
+    for i in range(WARMUP_STEPS, WARMUP_STEPS + n_replays):
+        load_twin(twin, state)
+        step = state.step
+        before = [p.detach().clone() for p in state.model.parameters()]
+        _, m, aux = scanned(state, stack[i : i + 1])  # the first of these captures
+        _, tm, _ = eager(twin, stack[i])
+        reg_want = cfg.disp_reg * min(max(1.0 - step / cfg.disp_reg_steps, 0.0), 1.0)
+        rows.append(dict(
+            step=step, loss=m["loss"].item(), twin_loss=tm["loss"].item(),
+            lr_adam=state.optimizer.param_groups[0]["lr"].item(), lr_at=lr_at(cfg, step),
+            disp_reg_weight=m["disp_reg_weight"].item(), disp_reg_formula=reg_want,
+            param_rel_l2=rel_l2(state.model.parameters(), twin.model.parameters()),
+            update_rel_l2=rel_l2(before, twin.model.parameters()),
+            **{f"{key}_rel_l2": rel_l2(adam_state(state, key), adam_state(twin, key))
+               for key in ("exp_avg", "exp_avg_sq")},
+            adam_steps_equal=all(torch.equal(a, b) for a, b in zip(adam_state(state, "step"),
+                                                                   adam_state(twin, "step"))),
+        ))
+    for r in rows:
+        check(abs(r["loss"] - r["twin_loss"]) <= 1e-4 * abs(r["twin_loss"]), f"replayed loss vs eager twin: {r}")
+        check(abs(r["lr_adam"] - r["lr_at"]) <= 1e-6 * r["lr_at"], f"lr Adam read vs lr_at: {r}")
+        check(abs(r["disp_reg_weight"] - r["disp_reg_formula"]) <= 1e-6 * cfg.disp_reg, f"disp_reg weight: {r}")
+        # one update moves the params by update_rel_l2 (~5e-5 at the decayed
+        # lr): a skipped or mis-scaled Adam step shows far above 1e-6
+        check(r["param_rel_l2"] <= 1e-6, f"params after the replayed update vs the eager twin's: {r}")
+        check(r["exp_avg_rel_l2"] <= 1e-4 and r["exp_avg_sq_rel_l2"] <= 1e-4 and r["adam_steps_equal"],
+              f"Adam's state after the replayed update vs the eager twin's: {r}")
+    lrs = {r["lr_at"] for r in rows}
+    regs = {r["disp_reg_formula"] for r in rows}
+    check(len(lrs) >= 3 and len(regs) >= 3, f"the schedules did not change while replaying: {lrs} {regs}")
+    check(tuple(aux["disparity"].shape) == (BATCH, HEIGHT, WIDTH, 1), "graph aux disparity shape")
+    wrapper_counts = counts(GS)
+    # the warp kernels inside replays, counted by name
+    synchronize(torch.device(device))
+    with trace(host=False) as prof:
+        _, m, _ = scanned(state, stack[WARMUP_STEPS + n_replays :])
+        synchronize(torch.device(device))
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = kernel_counts(names)
+    check(bool(torch.isfinite(m["loss"]).all()), f"non-finite replayed losses {m['loss']}")
+    want = {"grid_sample_fwd_kernel": n_replays, "grid_sample_bwd_uv_kernel": n_replays,
+            "grid_sample_bwd_img_kernel": 0}
+    check(by_name == want, f"warp kernels in {n_replays} replayed steps by name {by_name}, want {want}")
+    return dict(rows=rows, replayed_kernels_by_name=by_name, device_activities=len(names),
+                wrapper_launches=wrapper_counts, steps=state.step)
+
+
+def graph_bf16_phase(torch, np, ctx, device="cuda") -> dict:
+    """The graph phase's configuration with the network in bf16: 3 calls of
+    10 micro-steps (3 eager, 27 replayed), all finite, then the replayed
+    ms/step over 3 more calls."""
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.training import TrainConfig, create_train_state, make_scanned_train_step
+    from monodepth2_torch.utils.profiler import wall_ms
+
+    cfg = graph_config(TrainConfig, compute_dtype="bfloat16")
+    state = create_train_state(Model.create(depth=18, in_channels=1, device=device), cfg)
+    scanned = make_scanned_train_step(ctx, cfg)
+    rng = np.random.default_rng(2)
+    stack = torch.from_numpy(rng.uniform(size=(10, BATCH, 3, HEIGHT, WIDTH, 1)).astype(np.float32)).to(device)
+    losses = []
+    for _ in range(3):
+        _, m, _ = scanned(state, stack)
+        losses += m["loss"].tolist()
+    check(all(np.isfinite(losses)), f"non-finite bf16 graph losses {losses}")
+    ms = [t / 10 for t in wall_ms(lambda: scanned(state, stack), torch.device(device), 3, warmup=0, windows=2)]
+    return dict(losses=losses, replayed_ms_per_step=ms, steps=state.step)
+
+
+class _Recording:
+    """A dataset that records the indices asked of it (from worker threads)."""
+
+    def __init__(self, dataset):
+        import threading
+
+        self.dataset, self.requested, self.lock = dataset, [], threading.Lock()
+        for attr in ("K", "target_id", "source_ids"):
+            setattr(self, attr, getattr(dataset, attr))
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        with self.lock:
+            self.requested.append(int(i))
+        return self.dataset[i]
+
+
+def fit_phase(torch, np, GS, device="cuda") -> dict:
+    """fit to step 20, then a fit to 30 that resumes; see the docstring."""
+    from monodepth2_torch.bench import load_config
+    from monodepth2_torch.data import SyntheticDriving
+    from monodepth2_torch.device import synchronize
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.tools.profile_breakdown import kernel_counts
+    from monodepth2_torch.training import create_train_state, load_checkpoint, save_checkpoint
+    from monodepth2_torch.training.loop import _crossed, fit
+    from monodepth2_torch.utils.profiler import trace
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(
+            target_size=(WIDTH, HEIGHT), batch_size=BATCH, log_every=5, save_every=10,
+            log_dir=f"{tmp}/logs", save_dir=f"{tmp}/ckpts",
+        )
+        check(cfg.compute_dtype == "bfloat16" and cfg.steps_per_call == 10 and cfg.disp_reg > 0,
+              f"configs/kitti_ssl.json changed: {cfg}")
+        t = time.perf_counter()
+        driving = SyntheticDriving(n=48, target_size=(WIDTH, HEIGHT))  # renders each item once
+        ds = _Recording(driving)
+        per_epoch = len(ds) // BATCH
+        reset(GS)
+        synchronize(torch.device(device))
+        with trace(host=False) as prof:
+            state, _ = fit(cfg, ds, max_steps=20, verbose=False, device=device)
+            synchronize(torch.device(device))
+        calls = counts(GS)
+        # the wrappers run in the eager warm-up steps and in the capture,
+        # which records the kernels without launching them; the replays run
+        # no Python, so the launches are counted by kernel name
+        by_name = kernel_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["first_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3), wrapper_calls=calls,
+                                launches_by_name=by_name)
+        check(calls[GS.grid_sample_fwd.name] > 0 and calls[GS.grid_sample_bwd_uv.name] > 0
+              and calls[GS.grid_sample_bwd_img.name] == 0, f"fit's wrapper calls {calls}: want K1, K2 and no K3")
+        want = {"grid_sample_fwd_kernel": state.step, "grid_sample_bwd_uv_kernel": state.step,
+                "grid_sample_bwd_img_kernel": 0}
+        check(by_name == want, f"fit's launches by kernel name {by_name}, want one K1 and K2 a step: {want}")
+        first = state.step
+
+        # a new recorder: the first fit's loader thread may still be loading
+        ds = _Recording(driving)
+        t = time.perf_counter()
+        state, _ = fit(cfg, ds, max_steps=30, verbose=False, device=device)
+        out["second_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3))
+        # the resumed run starts at the first fit's step, at its data cursor:
+        # the rest of that epoch in its shuffle order (loader.py)
+        epoch, cursor = divmod(first, per_epoch)
+        order = np.arange(len(ds))
+        np.random.default_rng(cfg.seed + 1000003 * (epoch + 1)).shuffle(order)
+        rest = order[cursor * BATCH : per_epoch * BATCH]
+        check(sorted(ds.requested[: len(rest)]) == sorted(rest.tolist()),
+              f"resumed data order {ds.requested[:len(rest)]}, want {rest.tolist()}")
+
+        # the calls of both fits as fit groups the batches: steps_per_call a
+        # call, a short tail at each epoch's end, until max_steps is reached
+        calls = []
+        for start, max_steps in ((0, 20), (first, 30)):
+            step = start
+            while step < max_steps:
+                k = min(cfg.steps_per_call, per_epoch - step % per_epoch)
+                step += k
+                calls.append((step, k))
+        log_want = [(e // cfg.log_every) * cfg.log_every for e, k in calls if _crossed(cfg.log_every, e, k)]
+        save_want = {f"ckpt-{e}" for e, k in calls if _crossed(cfg.save_every, e, k)}
+        save_want |= {f"ckpt-{first}", f"ckpt-{state.step}"}  # each fit's final checkpoint
+        logged = [json.loads(line)["step"] for line in open(f"{tmp}/logs/metrics.jsonl")]
+        ckpts = {f.name[: -len(".npz")] for f in pathlib.Path(cfg.save_dir).glob("*.npz")}
+        check(logged == log_want, f"metrics.jsonl steps {logged}, want {log_want}")
+        check(ckpts == save_want, f"checkpoints {sorted(ckpts)}, want {sorted(save_want)}")
+        check(all(np.isfinite(json.loads(line)["loss"]) for line in open(f"{tmp}/logs/metrics.jsonl")),
+              "non-finite logged loss")
+
+        # bitwise round-trip of the trained state through save and load
+        save_checkpoint(f"{tmp}/roundtrip", state)
+        back = load_checkpoint(f"{tmp}/roundtrip", create_train_state(
+            Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels, device=device), cfg))
+        same = all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                                     back.model.state_dict().values()))
+        for p, q in zip(state.model.parameters(), back.model.parameters()):
+            same &= all(torch.equal(state.optimizer.state[p][k], back.optimizer.state[q][k])
+                        for k in ("exp_avg", "exp_avg_sq", "step"))
+        check(same and back.step == state.step, "checkpoint round-trip is not bitwise")
+        out.update(metrics_steps=logged, checkpoints=sorted(ckpts), resumed_at=first, data_cursor=[epoch, cursor],
+                   final_step=state.step)
+    return out
 
 
 def main() -> int:
@@ -267,9 +535,7 @@ def main() -> int:
         # two free-running Adam trajectories from random init drift apart by
         # rounding alone (CUDA's atomic adds in the reflect-pad and upsample
         # backward differ run to run), so only a shared state compares the warp
-        plain.model.load_state_dict(state.model.state_dict())
-        plain.optimizer.load_state_dict(state.optimizer.state_dict())
-        plain.step = state.step
+        load_twin(plain, state)
         state, metrics, aux = step(state, frames)
         plain, plain_metrics, _ = plain_step(plain, frames)
         losses.append(metrics["loss"].item())
@@ -306,6 +572,11 @@ def main() -> int:
          worst_param_grad_rel_l2_diff=worst,
          mean_disparity=mean_disps, launches=slice_launches)
 
+    # ---- graph: the scanned step, replayed, against eager twins
+    graph = graph_phase(torch, np, GS, ctx)
+    emit("graph", config="ResNet-18 416x128 gray batch 4 fp32, TF32 off, disp_reg 0.01/12 steps, "
+         "lr warmup 5 and decay x0.1 at 9", **graph)
+
     # ---- reference: the simple_depth fit through the kernels against the
     # committed golden trajectory (an independent PyTorch loop), with the
     # tolerances of tests/test_simple_depth_golden.py
@@ -330,6 +601,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.deterministic = False
 
+    # graph_bf16: the scanned step with the network in bf16
+    emit("graph_bf16", **graph_bf16_phase(torch, np, ctx))
+
+    # fit: the trainer's entry point, with its checkpoints and resume
+    fitted = fit_phase(torch, np, GS)
+    emit("fit", **fitted)
+
     # warp_bench: the path that runs the image VJP
     reset(GS)
     warp = warp_kernel_bench.main(["--iters", "10"])
@@ -340,25 +618,37 @@ def main() -> int:
     emit("warp_bench", launches=warp_launches, **{r["method"]: {k: v for k, v in r.items() if k != "method"}
                                                     for r in warp["rows"]})
 
-    # bench: the bf16 training step, as users train
+    # bench: the bf16 training step as users train (configs/kitti_ssl.json),
+    # eager and graph windows in turns
     reset(GS)
-    result = bench.main(["--warmup", "3", "--steps", "10"])
+    result = bench.main(["--warmup", "5", "--steps", "20"])
     bench_launches = counts(GS)
     check(bench_launches[GS.grid_sample_bwd_img.name] == 0 and
           bench_launches[GS.grid_sample_fwd.name] > 0 and bench_launches[GS.grid_sample_bwd_uv.name] > 0,
           f"bench launches {bench_launches}: want K1 and K2, and no K3")
-    check(np.isfinite(result["value"]) and np.isfinite(result["loss"]), f"bench result {result}")
-    emit("bench", launches=bench_launches, img_per_s=result["value"], ms_per_step=result["ms_per_step"],
-         ms_per_step_windows=result["ms_per_step_windows"], mfu_pct=result["mfu_pct"],
-         step_gflops=result["step_gflops"], power_limit=smi)
+    check(all(np.isfinite(result[m]["ms_per_step"]) and np.isfinite(result[m]["loss"]) for m in bench.MODES),
+          f"bench result {result}")
+    emit("bench", launches=bench_launches, img_per_s=result["value"], mode=result["mode"],
+         steps_per_call=result["steps_per_call"], window_order=result["window_order"],
+         **{m: result[m] for m in bench.MODES}, step_gflops=result["step_gflops"],
+         host=[result["host_cpu"], result["host_cores"], result["host_load"]], power_limit=smi)
 
-    # breakdown: per-block times and the device's idle share in a step
-    breakdown = profile_breakdown.main(["--iters", "10", "--idle-steps", "5"])
+    # breakdown: per-block times and the device's idle share in a step,
+    # eager and replayed
+    breakdown = profile_breakdown.main(["--iters", "10", "--idle-steps", "10"])
     check(0 <= breakdown["full_step_idle_share"] < 1, f"idle share {breakdown['full_step_idle_share']}")
+    per_step = breakdown["graph_window"]["kernels_per_step"]
+    want = {"grid_sample_fwd_kernel": 1, "grid_sample_bwd_uv_kernel": 1, "grid_sample_bwd_img_kernel": 0}
+    check(per_step == want, f"graph_step warp kernels a step by name {per_step}, want {want}")
+    window_keys = ("idle_share", "busy_ms_per_step", "window_ms_per_step", "device_activities_per_step",
+                   "kernels_per_step")
     emit("breakdown", blocks={k: v["ms"] for k, v in breakdown["blocks"].items()},
          derived=breakdown["derived"], full_step_idle_share=breakdown["full_step_idle_share"],
-         **{k: breakdown["idle_window"][k] for k in
-            ("idle_share", "busy_ms_per_step", "window_ms_per_step", "device_activities_per_step")})
+         graph_step_idle_share=breakdown["graph_step_idle_share"],
+         **{k: breakdown["idle_window"][k] for k in window_keys},
+         graph_window={k: breakdown["graph_window"][k] for k in window_keys},
+         top_device_ms_per_step=breakdown["idle_window"]["top_device_ms_per_step"][:6],
+         graph_top_device_ms_per_step=breakdown["graph_window"]["top_device_ms_per_step"][:6])
 
     # ---- times at the main-path shape (near-identity uv; the image VJP also
     # on the warp bench's smooth warp and on scattered uv, whose clamped
@@ -447,16 +737,22 @@ def main() -> int:
     max_errs = [max(e[i] for e in errs.values()) for i in range(3)]
     max_errs[2] = max(max_errs[2], *img_errs)
     kernels = []
+    fit_launches = {k[: -len("_kernel")]: n for k, n in fitted["first_fit"]["launches_by_name"].items()}
     for k, err, lines, launches in (
-        (GS.grid_sample_fwd, max_errs[0], (116, 175), slice_launches),  # _fwd_kernel, _fwd_kernel_colband
-        (GS.grid_sample_bwd_uv, max_errs[1], (124, 186), slice_launches),  # _bwd_duv_kernel, _colband
+        (GS.grid_sample_fwd, max_errs[0], (116, 175), fit_launches),  # _fwd_kernel, _fwd_kernel_colband
+        (GS.grid_sample_bwd_uv, max_errs[1], (124, 186), fit_launches),  # _bwd_duv_kernel, _colband
         # K3's path is the warp bench's forward + VJP; training runs it 0 times
         (GS.grid_sample_bwd_img, max_errs[2], (154, 214), warp_launches),  # _bwd_dimg_kernel, _colband
     ):
         kernels.append(dict(
             name=k.name, route="cuda", source="monodepth2_torch/ops/cuda/grid_sample.cu",
             replaces=f"{TPU_KERNELS}:{lines[0]}", also_replaces=f"{TPU_KERNELS}:{lines[1]}",
-            launches=launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
+            # K1/K2: the first fit's launches, counted by kernel name in a
+            # profile (the wrappers' counters see its eager steps and the
+            # capture, not the replays); K3: the warp bench's
+            launches=launches[k.name], fit_wrapper_calls=fitted["first_fit"]["wrapper_calls"][k.name],
+            launches_fit_by_name=fit_launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
+            launches_in_10_replays=graph["replayed_kernels_by_name"][f"{k.name}_kernel"],
             max_abs_err=err, **rows[k.name], C3=rows_c3[k.name],
         ))
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)

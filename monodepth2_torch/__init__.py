@@ -16,7 +16,11 @@ Layout:
              hand-written Hopper kernels and their ctypes binding
   nn/        Conv (reflect or zero padding), BatchNorm, pools, upsampling
   models/    ResNet encoder, DepthDecoder, PoseDecoder, Model
-  training/  config, multi-scale loss, train state and step
+  training/  config, multi-scale loss, train state, the eager and the scanned
+             (CUDA-graph) step, checkpoint, the fit loop
+  data/      datasets (KITTI, Depth10k, DChain, synthetic), the loader and
+             the pinned copy to the card
+  utils/     step timing, the profiler hook, PNG output
   bridge.py  JAX params/stats pytree <-> the port's state_dict
 """
 

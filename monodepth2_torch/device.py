@@ -3,6 +3,7 @@ entry points."""
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
@@ -39,12 +40,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def host_cpu() -> str | None:
+    """The host CPU's model name (/proc/cpuinfo), or None where there is none."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return None
+
+
 def describe(device: torch.device) -> dict:
     """What a result ran on: the device type, and on a card its torch name
-    and nvidia-smi's name and power limit."""
+    and nvidia-smi's name and power limit; and the host, which sets the time
+    of a step bound by its launches: the CPU model, the cores this process
+    may use and the 1/5/15-minute load averages."""
+    host = {"host_cpu": host_cpu(), "host_cores": len(os.sched_getaffinity(0)), "host_load": list(os.getloadavg())}
     if device.type != "cuda":
-        return {"device": device.type, "nvidia_smi": None}
-    return {"device": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi()}
+        return {"device": device.type, "nvidia_smi": None, **host}
+    return {"device": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi(), **host}
 
 
 def synchronize(device: torch.device) -> None:

@@ -114,10 +114,16 @@ class BatchNorm(nn.BatchNorm2d):
     batch moments come out of the bf16 mean and variance rounded to bf16
     (the variance times n/(n−1) rounded to bf16), and XLA takes the products
     and the sum in fp32 (a product of two bf16 values is exact in fp32).
-    Other inputs keep torch's fp32 update."""
+    Other inputs keep torch's fp32 update.
+
+    `frozen_stats` set: a training-mode forward normalizes as above and
+    leaves the running stats and the batch count as they are. The recompute
+    of a rematerialized forward (TrainConfig.remat) runs so, or it would
+    update them a second time in the step."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(ch, eps=eps, momentum=momentum)
+        self.frozen_stats = False
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -125,10 +131,18 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: Tensor) -> Tensor:
         if not (self.training and x.dtype == torch.bfloat16 and self.running_mean.dtype == torch.float32):
+            if self.training and self.frozen_stats:
+                # the same call on copies of the stats: the same kernels, so
+                # the recompute gives the first pass's values
+                return F.batch_norm(
+                    x, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
+                    True, self.momentum, self.eps,
+                )
             return super().forward(x)
         # normalize by the batch moments; the running update follows
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        self._bf16_running_update(x.detach())
+        if not self.frozen_stats:
+            self._bf16_running_update(x.detach())
         return y
 
     @torch.no_grad()

@@ -128,8 +128,10 @@ def project(
     cam = (points @ R.transpose(-1, -2) + t.transpose(-1, -2)) @ K.transpose(-1, -2).to(dtype)
     denom = 1.0 / (cam[..., 2:3] + eps)
     uv = cam[..., :2] * denom
-    norm = torch.tensor([width - 1.0, height - 1.0], dtype=dtype, device=points.device)
-    return (uv / norm) * 2.0 - 1.0
+    # each coordinate over its own Python scalar: a tensor built from a list
+    # is a copy from pageable host memory, which a CUDA graph cannot capture
+    uv = torch.stack((uv[..., 0] / (width - 1.0), uv[..., 1] / (height - 1.0)), dim=-1)
+    return uv * 2.0 - 1.0
 
 
 def disparity_to_depth(disparity: Tensor, min_depth: float, max_depth: float) -> Tensor:

@@ -26,6 +26,10 @@ differences of the JAX tool (:155-166), the share of a `full_step` window in
 which the card runs no kernel, the kernels and the operators that take the
 most device time in a step, and the card's name and power limit.
 
+  graph_step     make_scanned_train_step's call of `--steps-per-call` steps,
+                 one CUDA graph replayed that many times on the card; its ms
+                 are per step
+
 The idle share tests the hypothesis that eager PyTorch at batch 4 is bound
 by launches. One torch.profiler window of `--idle-steps` full steps, which
 starts and ends with the card drained and records the card's activity only,
@@ -35,7 +39,13 @@ activity to the last). The profiler still slows the host, so the window is
 longer than an unprofiled step (`window_ms_per_step` against `full_step`'s
 time shows by how much); `full_step_idle_share` is 1 − busy / `full_step`'s
 time, the idle share of an unprofiled step. `--trace-dir` also writes that
-window's Chrome trace.
+window's Chrome trace. `graph_step` has the same window over replayed
+calls (`graph_window`, per step), with the launches of the warp kernels
+counted by their names in it (`kernels_per_step`): a replay runs no Python,
+so the wrappers' own counters do not see them.
+
+The steps run the configuration of configs/kitti_ssl.json (disp_reg and
+the lr decay on), at the size and batch given.
 
 Without a card it raises unless `--device cpu` is given; a CPU run (for
 tests) reports host-clock times, no peak share and no idle share.
@@ -49,10 +59,21 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..bench import count_flops, setup
+from ..bench import CONFIG, count_flops, load_config, setup
 from ..device import H100_BF16_FLOPS, describe, resolve_device, synchronize
-from ..training import train_loss
+from ..models import Model
+from ..training import create_train_state, make_scanned_train_step, train_loss
 from ..utils.profiler import trace, wall_ms
+
+# the hand-written kernels, by the names the profiler gives their launches
+KERNEL_NAMES = ("grid_sample_fwd_kernel", "grid_sample_bwd_uv_kernel", "grid_sample_bwd_img_kernel")
+
+
+def kernel_counts(names) -> dict:
+    """Launches of each of KERNEL_NAMES among device activity names, which
+    hold the kernel's name whether the profiler demangles them or not."""
+    names = list(names)
+    return {k: sum(1 for n in names if k in n) for k in KERNEL_NAMES}
 
 
 def busy_us(intervals, lo: float, hi: float) -> float:
@@ -67,18 +88,20 @@ def busy_us(intervals, lo: float, hi: float) -> float:
 
 
 def profile_window(
-    step, state, frames, device: torch.device, steps: int, trace_dir: Optional[str], top_k: int = 12
+    run, device: torch.device, calls: int, steps: int, trace_dir: Optional[str], top_k: int = 12
 ) -> dict:
-    """Over one profiler window of `steps` full steps, recording the card's
-    activity only (see utils.profiler.trace): the idle share in the window,
-    1 − busy time / window, where the window runs from the first device
-    activity to the last (the card is drained before and after); the busy
-    time, the window and the number of device activities per step; and the
-    `top_k` device kernels by time."""
+    """Over one profiler window of `calls` run() calls that take `steps`
+    train steps in all, recording the card's activity only (see
+    utils.profiler.trace): the idle share in the window, 1 − busy time /
+    window, where the window runs from the first device activity to the last
+    (the card is drained before and after); the busy time, the window and
+    the number of device activities per step; the launches of the warp
+    kernels per step (`kernel_counts`); and the `top_k` device kernels by
+    time."""
     synchronize(device)
     with trace(trace_dir, host=False) as prof:
-        for _ in range(steps):
-            step(state, frames)
+        for _ in range(calls):
+            run()
         synchronize(device)
     device_events = [
         e for e in prof.events()
@@ -99,6 +122,7 @@ def profile_window(
         "busy_ms_per_step": busy / 1e3 / steps,
         "window_ms_per_step": (hi - lo) / 1e3 / steps,
         "device_activities_per_step": len(device_events) / steps,
+        "kernels_per_step": {k: n / steps for k, n in kernel_counts(e.name for e in device_events).items()},
         "top_device_ms_per_step": [
             {"name": name[:120], "ms": total / 1e3 / steps, "calls": count / steps}
             for name, (total, count) in top
@@ -106,7 +130,7 @@ def profile_window(
     }
 
 
-def top_ops(step, state, frames, device: torch.device, steps: int, top_k: int = 12) -> list:
+def top_ops(run, device: torch.device, steps: int, top_k: int = 12) -> list:
     """The `top_k` host operators, told apart by their input shapes, by the
     device time of their own kernels, per step, over `steps` full steps
     traced with the host's operators (which slows the host, but not the
@@ -114,7 +138,7 @@ def top_ops(step, state, frames, device: torch.device, steps: int, top_k: int = 
     synchronize(device)
     with trace(host=True) as prof:
         for _ in range(steps):
-            step(state, frames)
+            run()
         synchronize(device)
     ops = [
         e for e in prof.key_averages(group_by_input_shape=True)
@@ -135,6 +159,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--width", type=int, default=416)
     ap.add_argument("--height", type=int, default=128)
     ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--steps-per-call", type=int, default=None, help="graph_step's steps a call (default: the config's)")
     ap.add_argument("--fp32", action="store_true", help="float32 network (default bf16, as the bench)")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--idle-steps", type=int, default=10)
@@ -146,8 +171,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if on_card:
         torch.backends.cudnn.benchmark = True
     compute_dtype = "float32" if args.fp32 else "bfloat16"
-    cfg, ctx, state, step, frames = setup(args.width, args.height, args.batch_size, device, compute_dtype)
+    cfg = load_config(
+        target_size=(args.width, args.height), batch_size=args.batch_size, in_channels=1,
+        compute_dtype=compute_dtype,
+    )
+    spc = max(1, args.steps_per_call or cfg.steps_per_call)
+    ctx, state, step, frames = setup(cfg, device)
     model, optimizer = state.model, state.optimizer
+    graph_state = create_train_state(Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels, device=device), cfg)
+    scanned = make_scanned_train_step(ctx, cfg)
+    stack = frames.unsqueeze(0).expand(spc, *frames.shape)
 
     def model_fwd():
         model.train(True)
@@ -175,20 +208,28 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     def full_step():
         step(state, frames)
 
+    def graph_call():
+        scanned(graph_state, stack)
+
+    # (name, fn, what runs before it, train steps a call)
     blocks = [
-        ("model_fwd", model_fwd, None),
-        ("model_fwd_bwd", model_fwd_bwd, None),
-        ("loss_fwd", loss_fwd, None),
-        ("loss_fwd_bwd", loss_fwd_bwd, None),
-        ("adam_only", optimizer.step, set_fake_grads),
-        ("full_step", full_step, None),
+        ("model_fwd", model_fwd, None, 1),
+        ("model_fwd_bwd", model_fwd_bwd, None, 1),
+        ("loss_fwd", loss_fwd, None, 1),
+        ("loss_fwd_bwd", loss_fwd_bwd, None, 1),
+        ("adam_only", optimizer.step, set_fake_grads, 1),
+        ("full_step", full_step, None, 1),
+        ("graph_step", graph_call, None, spc),
     ]
     results = {}
-    for name, fn, before in blocks:
+    for name, fn, before, k in blocks:
         if before is not None:
             before()
-        ms = min(wall_ms(fn, device, args.iters))
-        gflops = count_flops(fn) / 1e9
+        calls = max(1, args.iters // k)
+        # the first graph calls warm up and capture; FlopCounterMode sees
+        # no operator of a replay, so the graph step counts an eager step's
+        ms = min(wall_ms(fn, device, calls)) / k
+        gflops = (count_flops(full_step) if name == "graph_step" else count_flops(fn)) / 1e9
         results[name] = {
             "block": name,
             "ms": ms,
@@ -206,7 +247,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "adam_ms": d["adam_only"],
         "step_overhead_ms": d["full_step"] - d["loss_fwd_bwd"] - d["adam_only"],
     }
-    window = profile_window(step, state, frames, device, args.idle_steps, args.trace_dir) if on_card else {}
+    window = graph_window = {}
+    if on_card:
+        window = profile_window(full_step, device, args.idle_steps, args.idle_steps, args.trace_dir)
+        graph_calls = max(1, -(-args.idle_steps // spc))
+        graph_window = profile_window(graph_call, device, graph_calls, graph_calls * spc, None)
     summary = {
         "derived": derived,
         # the kernels' busy time is the same with the profiler on; the host,
@@ -214,8 +259,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # gives the idle share of an unprofiled step
         "full_step_idle_share": 1.0 - window["busy_ms_per_step"] / d["full_step"] if on_card else None,
         "idle_window": window or None,
-        "top_ops": top_ops(step, state, frames, device, args.idle_steps) if on_card else None,
-        "config": f"ResNet-18 {cfg.width}x{cfg.height} gray batch {cfg.batch_size}, {compute_dtype} network",
+        "graph_step_idle_share": 1.0 - graph_window["busy_ms_per_step"] / d["graph_step"] if on_card else None,
+        "graph_window": graph_window or None,
+        "steps_per_call": spc,
+        "top_ops": top_ops(full_step, device, args.idle_steps) if on_card else None,
+        "config": f"ResNet-18 {cfg.width}x{cfg.height} gray batch {cfg.batch_size}, {compute_dtype} network, "
+                  f"{CONFIG.name}",
         **describe(device),
     }
     print(json.dumps(summary), flush=True)

@@ -1,10 +1,11 @@
 """Training, port of monodepth2_tpu/training: config, multi-scale loss, train
-state and step. The checkpoint, the fit loop and the scanned step come in
-later slices of the port."""
+state, the train step and the scanned (CUDA-graph) step, the checkpoint and
+the fit loop."""
 
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .config import TrainConfig, TrainContext
 from .loss import train_loss
-from .state import TrainState, create_train_state, make_train_step
+from .state import TrainState, create_train_state, make_scanned_train_step, make_train_step
 
 __all__ = [
     "TrainConfig",
@@ -13,4 +14,8 @@ __all__ = [
     "TrainState",
     "create_train_state",
     "make_train_step",
+    "make_scanned_train_step",
+    "save_checkpoint",
+    "load_checkpoint",
+    "latest_checkpoint",
 ]

@@ -1,8 +1,10 @@
 """Configuration and the device-resident training context, port of
 monodepth2_tpu/training/config.py. `TrainConfig` keeps the same fields and
-JSON schema, so configs/*.json load unchanged; fields that only the JAX
-package's TPU paths read (`remat`, `steps_per_call`, `debug_nans`) are kept
-for the schema and not acted on by this slice of the port.
+JSON schema, so configs/*.json load unchanged. `steps_per_call` selects the
+scanned step (a CUDA graph replayed that many times a call on the card),
+`remat` recomputes the network's activations in the backward
+(torch.utils.checkpoint), and `debug_nans` runs the steps eagerly and checks
+each loss on the host (training/state.py, training/loop.py).
 """
 
 from __future__ import annotations
@@ -93,10 +95,11 @@ class TrainConfig:
     # rematerialize the network in the backward pass (memory for FLOPs)
     remat: bool = False
 
-    # train steps executed per host dispatch (lax.scan inside one jitted
-    # call). >1 amortizes the ~4 ms/step remote-dispatch latency
-    # (BASELINE.md block table); logging/checkpoint cadences still fire on
-    # every crossed multiple. 1 = the reference's step-per-call behavior.
+    # train steps per call of the step function: on the card one captured
+    # CUDA graph replayed this many times, which takes the eager step's
+    # per-kernel host launches out of the step time; logging/checkpoint
+    # cadences still fire on every crossed multiple. 1 = the reference's
+    # step-per-call behavior.
     steps_per_call: int = 1
 
     # cadence (reference: log 50, save 500 — src/Monodepth.jl:149)

@@ -1,0 +1,229 @@
+"""Epoch training loop, port of monodepth2_tpu/training/loop.py
+(reference: train(), src/Monodepth.jl:70-199).
+
+Resumable (the full state checkpointed at the save cadence, the epoch
+position recovered from the step), a durable metrics.jsonl, disparity and
+warp PNGs at the log cadence, the input copied to the card ahead of use
+(data.device_prefetch), and `steps_per_call` steps a call of the scanned
+step, which on the card replays one captured CUDA graph. The JAX loop's mesh
+and multi-process branches (loop.py:184-304, :348-366) are not ported yet:
+`mesh` raises. Its retrace tripwire (`jit_trace_count`) has no counterpart,
+since nothing here is traced.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import DataLoader, device_prefetch
+from ..device import resolve_device
+from ..models import Model
+from ..utils.profiler import StepTimer
+from ..utils.viz import save_disparity, save_warped
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .config import TrainConfig, TrainContext
+from .state import create_train_state, make_scanned_train_step, make_train_step
+
+
+def _group_batches(iterator, k: int):
+    """Stack k consecutive host batches into (k, N, ...) steps_per_call
+    groups; a smaller tail group is emitted as-is. Batches may be arrays or
+    {"frames", "K"} per-item-K batches, stacked leaf-wise."""
+
+    def stack(bufs):
+        if isinstance(bufs[0], dict):
+            return {key: np.stack([b[key] for b in bufs]) for key in bufs[0]}
+        return np.stack(bufs)
+
+    buf = []
+    for b in iterator:
+        buf.append({k_: np.asarray(v) for k_, v in b.items()} if isinstance(b, dict) else np.asarray(b))
+        if len(buf) == k:
+            yield stack(buf)
+            buf = []
+    if buf:
+        yield stack(buf)
+
+
+def _batch_frames(batch):
+    """The frames leaf of an array-or-{"frames","K"} batch."""
+    return batch["frames"] if isinstance(batch, dict) else batch
+
+
+def _crossed(every: int, step: int, k: int) -> bool:
+    """Did [step-k, step] cross a multiple of `every`? (steps_per_call can
+    jump the counter past exact multiples.)"""
+    return bool(every) and (step // every) > ((step - k) // every)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def fit(
+    cfg: TrainConfig,
+    dataset,
+    K: Optional[np.ndarray] = None,
+    mesh=None,
+    resume: bool = True,
+    verbose: bool = True,
+    max_steps: Optional[int] = None,
+    progress: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """Train on `dataset` (items (3,H,W,C)); returns (state, model).
+
+    K defaults to dataset.K. Runs on the card unless device="cpu"; without
+    a card, or when the kernels do not build, it raises. `mesh` (data
+    parallelism) is not ported yet and raises NotImplementedError.
+    """
+    if mesh is not None:
+        raise NotImplementedError("fit over a mesh (data parallelism) is not ported to monodepth2_torch yet")
+    if K is None:
+        K = getattr(dataset, "K", None)
+        if K is None:
+            raise ValueError(
+                "fit() needs camera intrinsics: pass K= or use a dataset "
+                "exposing .K (KittiDataset/Depth10k/DChain all do)"
+            )
+    # frame-layout consistency: both sides are configurable, so a mismatch
+    # must be caught, not trained through
+    ds_target = getattr(dataset, "target_id", None)
+    ds_sources = getattr(dataset, "source_ids", None)
+    if ds_target is not None and ds_target != cfg.target_id:
+        raise ValueError(f"dataset target_id {ds_target} != cfg.target_id {cfg.target_id}")
+    if ds_sources is not None and tuple(ds_sources) != tuple(cfg.source_ids):
+        raise ValueError(
+            f"dataset source_ids {tuple(ds_sources)} != cfg.source_ids {tuple(cfg.source_ids)}"
+        )
+    device = resolve_device(device)
+    ctx = TrainContext.create(np.asarray(K), cfg.width, cfg.height, device=device)
+    model = Model.create(
+        depth=cfg.encoder_depth,
+        in_channels=cfg.in_channels,
+        scale_levels=cfg.scale_levels,
+        pose_tz_init=cfg.pose_tz_init,
+        device=device,
+    )
+    state = create_train_state(model, cfg)
+
+    start_epoch = 0
+    if resume:
+        ck = latest_checkpoint(cfg.save_dir)
+        if ck is not None:
+            load_checkpoint(ck, state)
+            if verbose:
+                print(f"resumed from {ck} at step {state.step}")
+    spc = max(1, int(cfg.steps_per_call))
+    step = make_scanned_train_step(ctx, cfg) if spc > 1 else make_train_step(ctx, cfg)
+    loader = DataLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed, with_K=cfg.per_item_K)
+    steps_per_epoch = len(loader)
+
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    os.makedirs(cfg.save_dir, exist_ok=True)
+
+    # debug_nans: the steps check each loss (training/state.py) and autograd's
+    # anomaly mode checks the backward, a global switch set for this fit()
+    # only and restored on every exit, the FloatingPointError included
+    prev_anomaly = None
+    if cfg.debug_nans:
+        prev_anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(True)
+    try:
+        timer = StepTimer()
+        # epoch-position resume: the shuffle is a pure function of (seed,
+        # epoch) and step counts batches, so (epoch, batch cursor) follows
+        # from the step alone
+        resumed_step = state.step
+        if resumed_step and steps_per_epoch:
+            start_epoch = resumed_step // steps_per_epoch
+            loader.epoch = start_epoch
+            loader.skip_next = resumed_step % steps_per_epoch
+        host_step = resumed_step
+        # a fit() resumed at or past max_steps trains nothing
+        done = max_steps is not None and resumed_step >= max_steps
+        for epoch in range(start_epoch, cfg.epochs):
+            if done:
+                break
+            src = iter(loader)
+            if spc > 1:
+                src = _group_batches(src, spc)
+            batches = device_prefetch(src, size=2, device=device)
+            if progress:
+                from tqdm import tqdm
+
+                # the first epoch after a mid-epoch resume yields only the
+                # un-skipped remainder
+                ep_batches = steps_per_epoch
+                if epoch == start_epoch and resumed_step and steps_per_epoch:
+                    ep_batches -= resumed_step % steps_per_epoch
+                batches = tqdm(
+                    batches, total=-(-ep_batches // spc), desc=f"epoch {epoch + 1}/{cfg.epochs}", leave=False,
+                )
+            for batch in batches:
+                state, metrics, aux = step(state, batch)
+                timer.tick()
+                # micro-steps this call (tail groups may be short)
+                k_done = int(_batch_frames(batch).shape[0]) if spc > 1 else 1
+                host_step += k_done
+                global_step = host_step  # == state.step
+
+                if _crossed(cfg.log_every, global_step, k_done):
+                    # the loss of the micro-step that crossed the log_every
+                    # multiple, at its own step index
+                    log_step = (global_step // cfg.log_every) * cfg.log_every
+                    off = k_done - 1 - (global_step - log_step)
+                    if spc > 1 and 0 <= off < k_done:
+                        loss = float(metrics["loss"][off])
+                        mean_disp = float(metrics["mean_disparity"][off])
+                    else:
+                        log_step = global_step
+                        loss = float(metrics["loss"][-1] if spc > 1 else metrics["loss"])
+                        mean_disp = float(
+                            metrics["mean_disparity"][-1] if spc > 1 else metrics["mean_disparity"]
+                        )
+                    ips = timer.images_per_sec(cfg.batch_size * k_done)
+                    with open(os.path.join(cfg.log_dir, "metrics.jsonl"), "a") as mf:
+                        mf.write(json.dumps({
+                            "step": log_step, "epoch": epoch, "loss": loss,
+                            "mean_disparity": mean_disp,
+                            "img_per_sec": round(ips, 1), "ts": time.time(),
+                        }) + "\n")
+                    if progress and hasattr(batches, "set_postfix"):
+                        batches.set_postfix(loss=f"{loss:.4f}", ips=f"{ips:.0f}")
+                    if verbose and not progress:
+                        print(f"epoch {epoch + 1}/{cfg.epochs} step {global_step} loss {loss:.5f} {ips:.1f} img/s")
+                    save_disparity(
+                        _host(aux["disparity"][0, ..., 0]),
+                        os.path.join(cfg.log_dir, f"disp-{global_step}.png"),
+                    )
+                    for sid, w in enumerate(aux["warped"]):
+                        save_warped(_host(w[0]), os.path.join(cfg.log_dir, f"warp-{global_step}-{sid}.png"))
+
+                if _crossed(cfg.save_every, global_step, k_done):
+                    last_loss = float(metrics["loss"][-1] if spc > 1 else metrics["loss"])
+                    save_checkpoint(
+                        os.path.join(cfg.save_dir, f"ckpt-{global_step}"),
+                        state,
+                        metadata={"step": global_step, "loss": last_loss, "config": cfg.to_json()},
+                    )
+
+                if max_steps is not None and global_step >= max_steps:
+                    done = True
+                    break
+    finally:
+        if prev_anomaly is not None:
+            torch.autograd.set_detect_anomaly(prev_anomaly)
+
+    save_checkpoint(
+        os.path.join(cfg.save_dir, f"ckpt-{state.step}"),
+        state,
+        metadata={"step": state.step, "config": cfg.to_json()},
+    )
+    return state, model

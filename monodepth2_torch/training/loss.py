@@ -10,12 +10,15 @@ All scales and sources warp in ONE grid-sample call over Src·S·N images.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import functools
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
-from ..nn.core import upsample_bilinear
+from ..nn.core import BatchNorm, upsample_bilinear
 from ..ops.geometry import (
     backproject,
     compose_transform,
@@ -26,6 +29,40 @@ from ..ops.geometry import (
 from ..ops.grid_sample import grid_sample
 from ..ops.losses import photometric_loss
 from .config import TrainConfig, TrainContext
+
+
+@functools.lru_cache(maxsize=16)
+def _scale_weights(scales: Tuple[float, ...], dtype: torch.dtype, device: torch.device) -> Tensor:
+    """The per-scale loss weights on the device, made once: a tensor built
+    from a Python list is a copy from pageable host memory, which a CUDA
+    graph cannot capture (the first call runs before any capture)."""
+    return torch.tensor(scales, dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def _frozen_bn_stats(model):
+    """Every BatchNorm of `model` normalizes without updating its running
+    stats while inside: the recompute of a rematerialized forward."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.frozen_stats = False
+
+
+def _run_model(model, frames: Tensor, cfg: TrainConfig):
+    """The model on the frames; with cfg.remat its activations are recomputed
+    in the backward instead of kept (loss.py:64-67, jax.checkpoint), the
+    recompute leaving the BN running stats alone."""
+    if not cfg.remat:
+        return model(frames, cfg.source_ids, cfg.target_id)
+    return checkpoint(
+        model, frames, cfg.source_ids, cfg.target_id, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _frozen_bn_stats(model)),
+    )
 
 
 def train_loss(
@@ -51,13 +88,15 @@ def train_loss(
 
     if cfg.compute_dtype == "bfloat16":
         # network in bf16, geometry and loss in fp32 (loss.py:69-85); the
-        # master params stay fp32
-        with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16):
-            disparities, poses = model(frames, cfg.source_ids, cfg.target_id)
+        # master params stay fp32. Autocast's cache of the weights' bf16
+        # copies must be off while a CUDA graph captures the step
+        capturing = frames.is_cuda and torch.cuda.is_current_stream_capturing()
+        with torch.autocast(device_type=frames.device.type, dtype=torch.bfloat16, cache_enabled=not capturing):
+            disparities, poses = _run_model(model, frames, cfg)
         disparities = [d.float() for d in disparities]
         poses = [(r.float(), t.float()) for r, t in poses]
     else:
-        disparities, poses = model(frames, cfg.source_ids, cfg.target_id)
+        disparities, poses = _run_model(model, frames, cfg)
 
     # target→source rigid transforms; sources before the target use the
     # inverted transform (reference src/training.jl:29-32)
@@ -126,7 +165,7 @@ def train_loss(
         dd_y * di_y[None], dim=(1, 2, 3)
     )  # (S,)
 
-    scale_w = torch.tensor(cfg.scales, dtype=dtype, device=frames.device)
+    scale_w = _scale_weights(cfg.scales, dtype, frames.device)
     per_scale = (
         torch.mean(warp_loss, dim=(1, 2, 3, 4))
         + smooth_per_scale * cfg.disparity_smoothness * scale_w

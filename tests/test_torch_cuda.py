@@ -160,3 +160,197 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         GS.grid_sample_bwd_img(img, uv, g.double())
     with pytest.raises(ValueError):
         GS.grid_sample_bwd_img(img, uv.cpu(), g)
+
+
+@pytest.fixture
+def exact_convs(dev):
+    """fp32 convolutions without TF32, deterministic algorithms; restored."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    torch.backends.cudnn.benchmark = False
+    yield dev
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _train_setup(dev, **kw):
+    import copy
+
+    import numpy as np
+
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.training import TrainConfig, TrainContext, create_train_state
+
+    w, h, n = 64, 32, 2
+    cfg = TrainConfig(
+        target_size=(w, h), batch_size=n, steps_per_call=4, disp_reg=0.01, disp_reg_steps=6,
+        lr_warmup_steps=4, lr_decay_steps=6, lr_decay_factor=0.5, **kw,
+    )
+    K = np.asarray([[50.0, 0, w / 2], [0, 50.0, h / 2], [0, 0, 1.0]])
+    ctx = TrainContext.create(K, w, h, device=dev)
+    frames = torch.from_numpy(np.random.default_rng(0).uniform(size=(10, n, 3, h, w, 1)).astype(np.float32)).to(dev)
+
+    def new_state():
+        return create_train_state(Model.create(depth=18, in_channels=1, device=dev), cfg)
+
+    def load_twin(twin, state):
+        twin.model.load_state_dict(state.model.state_dict())
+        twin.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+        twin.step = state.step
+
+    return cfg, ctx, frames, new_state, load_twin
+
+
+def _rel_l2(xs, ys) -> float:
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    x = torch.cat([t.detach().flatten().double() for t in xs])
+    y = torch.cat([t.detach().flatten().double() for t in ys])
+    return float((x - y).norm() / y.norm())
+
+
+def _adam_state(state, key):
+    return [state.optimizer.state[p][key] for p in state.model.parameters()]
+
+
+# bounds on the relative L2 distance of (params, Adam's moments) after a
+# replayed update from the eager one's, by the network's dtype. One update
+# moves the 1.6e7 params by 4.8e-4 to 1.4e-3 of their norm at these steps,
+# and a skipped Adam step leaves the moments far apart. What remains is the
+# rounding of CUDA's atomic adds (reflect-pad, upsample backward), in no
+# fixed order, which bf16's 8-bit adds make larger: `PYTHONPATH=. python
+# tests/test_torch_cuda.py` prints the distances on the card
+REPLAY_BOUNDS = {"float32": (1e-6, 1e-4), "bfloat16": (5e-5, 5e-2)}
+REPLAY_CASES = [("float32", False), ("bfloat16", False), ("float32", True)]
+
+
+def _replays_against_eager(dev, compute_dtype, per_item_K):
+    """Warm the scanned step up, then replay steps 3-8 one call each, each
+    from the state of an eager twin that takes the same step. Returns (cfg,
+    the per-step comparisons, the last aux, and a function that replays step
+    9)."""
+    from monodepth2_torch.training import make_scanned_train_step, make_train_step
+    from monodepth2_torch.training.state import WARMUP_STEPS, lr_at
+
+    cfg, ctx, frames, new_state, load_twin = _train_setup(dev, compute_dtype=compute_dtype, per_item_K=per_item_K)
+    Ks = ctx.K.expand(10, 2, 3, 3) * torch.linspace(0.8, 1.2, 10, device=dev).view(10, 1, 1, 1)
+    Ks[..., 2, 2] = 1.0
+
+    def batch(lo, hi):
+        return {"frames": frames[lo:hi], "K": Ks[lo:hi]} if per_item_K else frames[lo:hi]
+
+    state, twin = new_state(), new_state()
+    scanned, eager = make_scanned_train_step(ctx, cfg), make_train_step(ctx, cfg)
+    _, m, _ = scanned(state, batch(0, WARMUP_STEPS))
+    assert state.step == WARMUP_STEPS and m["loss"].shape == (WARMUP_STEPS,)
+    rows = []
+    for i in range(WARMUP_STEPS, 9):
+        load_twin(twin, state)
+        step = state.step
+        _, m, aux = scanned(state, batch(i, i + 1))
+        _, tm, _ = eager(twin, {"frames": frames[i], "K": Ks[i]} if per_item_K else frames[i])
+        rows.append(dict(
+            step=step, loss=m["loss"][0], twin_loss=tm["loss"], lr=m["lr"][0].item(),
+            lr_adam=state.optimizer.param_groups[0]["lr"].item(), lr_at=lr_at(cfg, step),
+            disp_reg_weight=m["disp_reg_weight"][0].item(),
+            params=_rel_l2(state.model.parameters(), twin.model.parameters()),
+            **{key: _rel_l2(_adam_state(state, key), _adam_state(twin, key)) for key in ("exp_avg", "exp_avg_sq")},
+            adam_steps_equal=all(
+                torch.equal(a, b) for a, b in zip(_adam_state(state, "step"), _adam_state(twin, "step"))
+            ),
+        ))
+    return cfg, rows, aux, lambda: scanned(state, batch(9, 10))
+
+
+@pytest.mark.parametrize("compute_dtype, per_item_K", REPLAY_CASES)
+def test_captured_step_replays_the_eager_step(exact_convs, compute_dtype, per_item_K):
+    """The scanned step warms up eagerly, captures one step as a CUDA graph
+    and replays it: from the same state, each replayed step's loss, the lr
+    Adam read and the disp_reg weight equal an eager step's while both
+    schedules change, and the params and Adam's moments after the update
+    are within REPLAY_BOUNDS of the eager step's, so that a replay that
+    skipped Adam's step, or ran it with a frozen lr (a third or half of the
+    update off at steps 3-5), fails. With per-item intrinsics the graph
+    copies each step's K into its own buffer too."""
+    cfg, rows, aux, replay_next = _replays_against_eager(exact_convs, compute_dtype, per_item_K)
+    param_bound, moment_bound = REPLAY_BOUNDS[compute_dtype]
+    for r in rows:
+        torch.testing.assert_close(r["loss"], r["twin_loss"], rtol=1e-5, atol=0)
+        assert r["lr"] == pytest.approx(r["lr_at"], rel=1e-6)
+        assert r["lr_adam"] == pytest.approx(r["lr_at"], rel=1e-6)
+        assert r["disp_reg_weight"] == pytest.approx(
+            cfg.disp_reg * min(max(1 - r["step"] / cfg.disp_reg_steps, 0), 1), rel=1e-6, abs=1e-12
+        )
+        assert r["params"] <= param_bound, r
+        assert r["exp_avg"] <= moment_bound and r["exp_avg_sq"] <= moment_bound, r
+        assert r["adam_steps_equal"], r
+    assert aux["disparity"].shape == (2, 32, 64, 1)
+    # aux is a copy: a later replay leaves it alone
+    before = aux["disparity"].clone()
+    replay_next()
+    assert torch.equal(aux["disparity"], before)
+
+
+def test_device_prefetch_copies_to_the_card(dev):
+    """Pinned, side-stream copies: the batches arrive on the card equal to
+    the arrays, in order, arrays and {"frames", "K"} dicts alike."""
+    import numpy as np
+
+    from monodepth2_torch.data import device_prefetch
+
+    batches = [np.random.default_rng(i).uniform(size=(4, 3, 8, 8, 1)) for i in range(5)]
+    out = list(device_prefetch(iter(batches), size=2, device=dev))
+    assert len(out) == 5
+    for a, b in zip(out, batches):
+        assert a.is_cuda and a.dtype == torch.float32
+        assert torch.equal(a.cpu(), torch.from_numpy(b.astype(np.float32)))
+    d = next(device_prefetch(iter([{"frames": batches[0], "K": np.eye(3)}]), device=dev))
+    assert d["frames"].is_cuda and d["K"].is_cuda and torch.equal(d["K"].cpu(), torch.eye(3))
+
+
+def test_scanned_step_is_bound_to_its_state(exact_convs):
+    from monodepth2_torch.training import make_scanned_train_step
+
+    cfg, ctx, frames, new_state, _ = _train_setup(exact_convs)
+    scanned = make_scanned_train_step(ctx, cfg)
+    scanned(new_state(), frames[:1])
+    with pytest.raises(ValueError):
+        scanned(new_state(), frames[:1])
+
+
+def test_capturable_adam_matches_adam(dev):
+    """The card's capturable Adam (a tensor lr, step counts on the card) and
+    Adam as the CPU runs it take the same update from the same grads, but
+    for the bias corrections: capturable Adam takes 1 − β2^t in float32 on
+    the card (as optax does), where the CPU's Adam takes it in Python
+    floats. At t = 1 float32(0.999) makes 1 − β2 off by 1.3e-5 of itself,
+    so each update may differ by ~1e-5 of its size (~lr); and it adds the
+    update in another association (p + m / (denom / -step)), which may
+    round p differently by a few ulp."""
+    gen = torch.Generator().manual_seed(0)
+    params = [torch.randn(s, generator=gen).to(dev) for s in ((64, 3, 3, 3), (64,), (7,))]
+    grads = [[torch.randn(p.shape, generator=gen).to(dev) for p in params] for _ in range(4)]
+    outs = []
+    for capturable in (True, False):
+        ps = [torch.nn.Parameter(p.clone()) for p in params]
+        lr = torch.full((), 1e-3, device=dev) if capturable else torch.full((), 1e-3)
+        opt = torch.optim.Adam(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable, foreach=capturable)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = g.clone()
+            opt.step()
+        outs.append(ps)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=4 * 2.0**-23, atol=2e-5 * 1e-3 * len(grads))
+
+
+if __name__ == "__main__":
+    # the replays' distances from their eager twins, three runs of each case
+    import json
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    for run in range(3):
+        for compute_dtype, per_item_K in REPLAY_CASES:
+            _, rows, _, _ = _replays_against_eager(torch.device("cuda"), compute_dtype, per_item_K)
+            keys = ("step", "params", "exp_avg", "exp_avg_sq")
+            print(json.dumps(dict(run=run, compute_dtype=compute_dtype, per_item_K=per_item_K,
+                                  rows=[{k: r[k] for k in keys} for r in rows])), flush=True)

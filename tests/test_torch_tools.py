@@ -22,6 +22,16 @@ TINY = ["--device", "cpu", "--width", "64", "--height", "32", "--batch-size", "1
 KERNEL_NAMES = ("grid_sample_fwd", "grid_sample_bwd_uv", "grid_sample_bwd_img")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes on the
+    host's cores, which torch's default of one thread a core oversubscribes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _printed(capsys):
     return [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
 
@@ -32,15 +42,26 @@ def _assert_finite(record, keys):
 
 
 def test_bench_on_cpu(capsys):
-    out = bench.main(TINY + ["--warmup", "1", "--steps", "1"])
+    """Both modes, their windows in turns; the headline keeps its name on
+    the eager mode, and the graph mode (which on the CPU runs its steps
+    eagerly) reports under a name of its own."""
+    out = bench.main(TINY + ["--warmup", "1", "--steps", "2", "--steps-per-call", "2"])
     assert _printed(capsys) == [out]
     _assert_finite(out, ("value", "ms_per_step", "step_gflops", "loss"))
-    assert out["metric"] == "kitti_64x32_train_images_per_sec_per_chip"
-    assert out["unit"] == "img/s" and out["steps_per_call"] == 1
-    assert out["value"] == pytest.approx(1 / (out["ms_per_step"] / 1e3))
-    assert out["ms_per_step"] == min(out["ms_per_step_windows"]) and len(out["ms_per_step_windows"]) == 2
+    assert out["metric"] == out["eager"]["metric"] == "kitti_64x32_train_images_per_sec_per_chip"
+    assert out["graph"]["metric"] == "kitti_64x32_graph_train_images_per_sec_per_chip"
+    assert out["unit"] == "img/s" and out["steps_per_call"] == 2 and out["mode"] == "eager"
+    assert out["window_order"] == ["eager", "graph", "graph", "eager"]
+    for mode in bench.MODES:
+        _assert_finite(out[mode], ("ms_per_step", "img_per_s", "loss"))
+        assert out[mode]["ms_per_step"] == min(out[mode]["ms_per_step_windows"])
+        assert len(out[mode]["ms_per_step_windows"]) == 2 and out[mode]["mfu_pct"] is None
+    assert out["value"] == pytest.approx(1 / (out["ms_per_step"] / 1e3)) == out["eager"]["img_per_s"]
+    assert out["ms_per_step_windows"] == out["eager"]["ms_per_step_windows"]
     assert out["step_gflops"] > 0
     assert (out["device"], out["nvidia_smi"], out["mfu_pct"]) == ("cpu", None, None)
+    assert out["host_cores"] >= 1 and len(out["host_load"]) == 3
+    assert "kitti_ssl.json" in out["config"] and "disp_reg 0.01" in out["config"]
 
 
 def test_warp_kernel_bench_on_cpu(capsys):
@@ -81,9 +102,9 @@ def test_warp_kernel_bench_bytes_at_training_shape():
 
 
 def test_profile_breakdown_on_cpu(capsys):
-    out = profile_breakdown.main(TINY + ["--iters", "1"])
+    out = profile_breakdown.main(TINY + ["--iters", "1", "--steps-per-call", "2"])
     printed = _printed(capsys)
-    names = ["model_fwd", "model_fwd_bwd", "loss_fwd", "loss_fwd_bwd", "adam_only", "full_step"]
+    names = ["model_fwd", "model_fwd_bwd", "loss_fwd", "loss_fwd_bwd", "adam_only", "full_step", "graph_step"]
     assert [line["block"] for line in printed[:-1]] == names
     for line in printed[:-1]:
         _assert_finite(line, ("ms", "gflops", "tflops_per_s"))
@@ -101,6 +122,23 @@ def test_profile_breakdown_on_cpu(capsys):
         "step_overhead_ms": ms["full_step"] - ms["loss_fwd_bwd"] - ms["adam_only"],
     })
     assert printed[-1]["full_step_idle_share"] is None and printed[-1]["device"] == "cpu"
+    assert printed[-1]["graph_step_idle_share"] is None and printed[-1]["graph_window"] is None
+    assert printed[-1]["steps_per_call"] == 2
+    assert blocks["graph_step"]["gflops"] == blocks["full_step"]["gflops"]
+
+
+def test_kernel_counts_by_name():
+    """The warp kernels counted among device activity names, demangled or
+    not; a library's grid sampler is not one of them."""
+    names = [
+        "void (anonymous namespace)::grid_sample_fwd_kernel<1>(float const*, float const*, float*, int)",
+        "_ZN40_GLOBAL__N__grid_sample_cu_66088be2_25grid_sample_bwd_uv_kernelILi1EEEvPKfS2_S2_Pfiiiiii",
+        "void (anonymous namespace)::grid_sample_fwd_kernel<3>(float const*, float const*, float*, int)",
+        "void at::native::grid_sampler_2d_kernel<float, int>(...)",
+    ]
+    assert profile_breakdown.kernel_counts(names) == {
+        "grid_sample_fwd_kernel": 2, "grid_sample_bwd_uv_kernel": 1, "grid_sample_bwd_img_kernel": 0,
+    }
 
 
 @pytest.mark.parametrize("entry", [bench.main, warp_kernel_bench.main, profile_breakdown.main])
