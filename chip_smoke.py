@@ -3,7 +3,8 @@
 
 Drives the port's main path — self-supervised training steps of the full
 ResNet-18 model at 416×128, grayscale, batch 4 (the reference configuration
-of bench.py) — through the hand-written CUDA grid-sample kernels, and the
+of bench.py) — through the hand-written CUDA grid-sample kernels, its
+serving path (eval, export, the HTTP server), which runs no warp, and the
 port's measurement entry points, one of which (the warp-kernel bench) is the
 path that runs the image VJP. Checks each kernel against its plain PyTorch
 version on the card. Phases, each printing one flushed JSON line with its
@@ -69,6 +70,34 @@ wall time:
            metrics.jsonl steps (those _crossed gives), the resumed step and
            data cursor, and a bitwise round-trip of params, stats and Adam
            state through save and load
+  eval     the serving path, which runs no warp (launch counters reset
+           before it and read after serve: K1 = K2 = K3 = 0): eval.load_model
+           on the first fit's last checkpoint (the architecture from its
+           sidecar, not from the caller's config), the infer fn's output on
+           the card, eval_images on 8 PNGs of held-out SyntheticDriving
+           frames (8 disparity PNGs), eval_depth_accuracy on them against
+           gt_depth_for (finite metrics)
+  export   fp32 and bf16 artifacts (serving.export_inference) exported and
+           loaded (load_inference) on the card; with TF32 off, the fp32
+           artifact within 1e-5 abs of live inference at batch 1, 3 and 64
+           for disparity and depth, and the bf16 one within 3e-2 abs of the
+           fp32 live disparity (mean under 5e-3) and 0.1 relative in depth;
+           outputs on the card; one artifact call in a profiler window has
+           device kernels and no host/card copy, and its graph names no
+           device but the card
+  serve    server.build_server over the fp32 artifact on 127.0.0.1 (port 0),
+           buckets 1, 4, 16, 64, warmed, TF32 off: 16 concurrent requests
+           (float32 and uint8 octet-stream of 1-3 rows, one PNG), each
+           response within 1e-6 of the artifact on its rows; /healthz counts
+           fewer device batches than requests; shut down with timeouts
+  serve_bench  tools.serving_bench (live and artifact, fp32 and bf16, batch
+           1, 4, 16, 64, input on the card and numpy round trip),
+           tools.http_serving_bench (concurrency 1, 8, 32) and
+           tools.model_block_bench, in process and shortened
+  ssl      tools.ssl_driving_experiment (recipe C: depth 1-80, disp_reg
+           0.01 over 2,500 steps, bf16), shortened to 100 steps on 20 scenes
+           with val on 4: history.json written, rows at 50 and 100, finite
+           losses, val metrics, mean disparity inside (0, 1)
   warp_bench  python -m monodepth2_torch.tools.warp_kernel_bench, in process
            and shortened; its counts must show K1, K2 and K3 launched
   bench    python -m monodepth2_torch.bench (configs/kitti_ssl.json, bf16
@@ -91,12 +120,14 @@ wall time:
 
 The line before the last is {"kernels": [...]}, where the `launches` of K1
 and K2 are the first fit's, counted by kernel name, and K3's the warp
-bench's (training never runs it); the last line is
+bench's (training never runs it), and `launches_serving` those of the
+eval, export and serve phases (0); the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
 Without a CUDA device, or beside no monodepth2_torch package, it prints no
-result and exits nonzero. Every subprocess has a timeout; the only threads
-are fit's data loader's, daemon threads that stop once fit drops its
-iterator.
+result and exits nonzero. Every subprocess has a timeout; the threads are
+fit's data loader's, daemon threads that stop once fit drops its iterator,
+and the servers' and their clients', each shut down or joined with a
+timeout.
 """
 
 from __future__ import annotations
@@ -314,8 +345,10 @@ class _Recording:
         return self.dataset[i]
 
 
-def fit_phase(torch, np, GS, device="cuda") -> dict:
-    """fit to step 20, then a fit to 30 that resumes; see the docstring."""
+def fit_phase(torch, np, GS, tmp, device="cuda") -> tuple:
+    """fit to step 20, then a fit to 30 that resumes, in the directory `tmp`;
+    see the docstring. Returns the phase's record and the first fit's last
+    checkpoint."""
     from monodepth2_torch.bench import load_config
     from monodepth2_torch.data import SyntheticDriving
     from monodepth2_torch.device import synchronize
@@ -326,82 +359,283 @@ def fit_phase(torch, np, GS, device="cuda") -> dict:
     from monodepth2_torch.utils.profiler import trace
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = load_config(
-            target_size=(WIDTH, HEIGHT), batch_size=BATCH, log_every=5, save_every=10,
-            log_dir=f"{tmp}/logs", save_dir=f"{tmp}/ckpts",
-        )
-        check(cfg.compute_dtype == "bfloat16" and cfg.steps_per_call == 10 and cfg.disp_reg > 0,
-              f"configs/kitti_ssl.json changed: {cfg}")
-        t = time.perf_counter()
-        driving = SyntheticDriving(n=48, target_size=(WIDTH, HEIGHT))  # renders each item once
-        ds = _Recording(driving)
-        per_epoch = len(ds) // BATCH
-        reset(GS)
+    cfg = load_config(
+        target_size=(WIDTH, HEIGHT), batch_size=BATCH, log_every=5, save_every=10,
+        log_dir=f"{tmp}/logs", save_dir=f"{tmp}/ckpts",
+    )
+    check(cfg.compute_dtype == "bfloat16" and cfg.steps_per_call == 10 and cfg.disp_reg > 0,
+          f"configs/kitti_ssl.json changed: {cfg}")
+    t = time.perf_counter()
+    driving = SyntheticDriving(n=48, target_size=(WIDTH, HEIGHT))  # renders each item once
+    ds = _Recording(driving)
+    per_epoch = len(ds) // BATCH
+    reset(GS)
+    synchronize(torch.device(device))
+    with trace(host=False) as prof:
+        state, _ = fit(cfg, ds, max_steps=20, verbose=False, device=device)
         synchronize(torch.device(device))
-        with trace(host=False) as prof:
-            state, _ = fit(cfg, ds, max_steps=20, verbose=False, device=device)
-            synchronize(torch.device(device))
-        calls = counts(GS)
-        # the wrappers run in the eager warm-up steps and in the capture,
-        # which records the kernels without launching them; the replays run
-        # no Python, so the launches are counted by kernel name
-        by_name = kernel_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        out["first_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3), wrapper_calls=calls,
-                                launches_by_name=by_name)
-        check(calls[GS.grid_sample_fwd.name] > 0 and calls[GS.grid_sample_bwd_uv.name] > 0
-              and calls[GS.grid_sample_bwd_img.name] == 0, f"fit's wrapper calls {calls}: want K1, K2 and no K3")
-        want = {"grid_sample_fwd_kernel": state.step, "grid_sample_bwd_uv_kernel": state.step,
-                "grid_sample_bwd_img_kernel": 0}
-        check(by_name == want, f"fit's launches by kernel name {by_name}, want one K1 and K2 a step: {want}")
-        first = state.step
+    calls = counts(GS)
+    # the wrappers run in the eager warm-up steps and in the capture,
+    # which records the kernels without launching them; the replays run
+    # no Python, so the launches are counted by kernel name
+    by_name = kernel_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["first_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3), wrapper_calls=calls,
+                            launches_by_name=by_name)
+    check(calls[GS.grid_sample_fwd.name] > 0 and calls[GS.grid_sample_bwd_uv.name] > 0
+          and calls[GS.grid_sample_bwd_img.name] == 0, f"fit's wrapper calls {calls}: want K1, K2 and no K3")
+    want = {"grid_sample_fwd_kernel": state.step, "grid_sample_bwd_uv_kernel": state.step,
+            "grid_sample_bwd_img_kernel": 0}
+    check(by_name == want, f"fit's launches by kernel name {by_name}, want one K1 and K2 a step: {want}")
+    first = state.step
 
-        # a new recorder: the first fit's loader thread may still be loading
-        ds = _Recording(driving)
-        t = time.perf_counter()
-        state, _ = fit(cfg, ds, max_steps=30, verbose=False, device=device)
-        out["second_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3))
-        # the resumed run starts at the first fit's step, at its data cursor:
-        # the rest of that epoch in its shuffle order (loader.py)
-        epoch, cursor = divmod(first, per_epoch)
-        order = np.arange(len(ds))
-        np.random.default_rng(cfg.seed + 1000003 * (epoch + 1)).shuffle(order)
-        rest = order[cursor * BATCH : per_epoch * BATCH]
-        check(sorted(ds.requested[: len(rest)]) == sorted(rest.tolist()),
-              f"resumed data order {ds.requested[:len(rest)]}, want {rest.tolist()}")
+    # a new recorder: the first fit's loader thread may still be loading
+    ds = _Recording(driving)
+    t = time.perf_counter()
+    state, _ = fit(cfg, ds, max_steps=30, verbose=False, device=device)
+    out["second_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3))
+    # the resumed run starts at the first fit's step, at its data cursor:
+    # the rest of that epoch in its shuffle order (loader.py)
+    epoch, cursor = divmod(first, per_epoch)
+    order = np.arange(len(ds))
+    np.random.default_rng(cfg.seed + 1000003 * (epoch + 1)).shuffle(order)
+    rest = order[cursor * BATCH : per_epoch * BATCH]
+    check(sorted(ds.requested[: len(rest)]) == sorted(rest.tolist()),
+          f"resumed data order {ds.requested[:len(rest)]}, want {rest.tolist()}")
 
-        # the calls of both fits as fit groups the batches: steps_per_call a
-        # call, a short tail at each epoch's end, until max_steps is reached
-        calls = []
-        for start, max_steps in ((0, 20), (first, 30)):
-            step = start
-            while step < max_steps:
-                k = min(cfg.steps_per_call, per_epoch - step % per_epoch)
-                step += k
-                calls.append((step, k))
-        log_want = [(e // cfg.log_every) * cfg.log_every for e, k in calls if _crossed(cfg.log_every, e, k)]
-        save_want = {f"ckpt-{e}" for e, k in calls if _crossed(cfg.save_every, e, k)}
-        save_want |= {f"ckpt-{first}", f"ckpt-{state.step}"}  # each fit's final checkpoint
-        logged = [json.loads(line)["step"] for line in open(f"{tmp}/logs/metrics.jsonl")]
-        ckpts = {f.name[: -len(".npz")] for f in pathlib.Path(cfg.save_dir).glob("*.npz")}
-        check(logged == log_want, f"metrics.jsonl steps {logged}, want {log_want}")
-        check(ckpts == save_want, f"checkpoints {sorted(ckpts)}, want {sorted(save_want)}")
-        check(all(np.isfinite(json.loads(line)["loss"]) for line in open(f"{tmp}/logs/metrics.jsonl")),
-              "non-finite logged loss")
+    # the calls of both fits as fit groups the batches: steps_per_call a
+    # call, a short tail at each epoch's end, until max_steps is reached
+    calls = []
+    for start, max_steps in ((0, 20), (first, 30)):
+        step = start
+        while step < max_steps:
+            k = min(cfg.steps_per_call, per_epoch - step % per_epoch)
+            step += k
+            calls.append((step, k))
+    log_want = [(e // cfg.log_every) * cfg.log_every for e, k in calls if _crossed(cfg.log_every, e, k)]
+    save_want = {f"ckpt-{e}" for e, k in calls if _crossed(cfg.save_every, e, k)}
+    save_want |= {f"ckpt-{first}", f"ckpt-{state.step}"}  # each fit's final checkpoint
+    logged = [json.loads(line)["step"] for line in open(f"{tmp}/logs/metrics.jsonl")]
+    ckpts = {f.name[: -len(".npz")] for f in pathlib.Path(cfg.save_dir).glob("*.npz")}
+    check(logged == log_want, f"metrics.jsonl steps {logged}, want {log_want}")
+    check(ckpts == save_want, f"checkpoints {sorted(ckpts)}, want {sorted(save_want)}")
+    check(all(np.isfinite(json.loads(line)["loss"]) for line in open(f"{tmp}/logs/metrics.jsonl")),
+          "non-finite logged loss")
 
-        # bitwise round-trip of the trained state through save and load
-        save_checkpoint(f"{tmp}/roundtrip", state)
-        back = load_checkpoint(f"{tmp}/roundtrip", create_train_state(
-            Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels, device=device), cfg))
-        same = all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
-                                                     back.model.state_dict().values()))
-        for p, q in zip(state.model.parameters(), back.model.parameters()):
-            same &= all(torch.equal(state.optimizer.state[p][k], back.optimizer.state[q][k])
-                        for k in ("exp_avg", "exp_avg_sq", "step"))
-        check(same and back.step == state.step, "checkpoint round-trip is not bitwise")
-        out.update(metrics_steps=logged, checkpoints=sorted(ckpts), resumed_at=first, data_cursor=[epoch, cursor],
-                   final_step=state.step)
-    return out
+    # bitwise round-trip of the trained state through save and load
+    save_checkpoint(f"{tmp}/roundtrip", state)
+    back = load_checkpoint(f"{tmp}/roundtrip", create_train_state(
+        Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels, device=device), cfg))
+    same = all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                                 back.model.state_dict().values()))
+    for p, q in zip(state.model.parameters(), back.model.parameters()):
+        same &= all(torch.equal(state.optimizer.state[p][k], back.optimizer.state[q][k])
+                    for k in ("exp_avg", "exp_avg_sq", "step"))
+    check(same and back.step == state.step, "checkpoint round-trip is not bitwise")
+    out.update(metrics_steps=logged, checkpoints=sorted(ckpts), resumed_at=first, data_cursor=[epoch, cursor],
+               final_step=state.step)
+    return out, f"{cfg.save_dir}/ckpt-{first}"
+
+
+def held_out(np, n: int):
+    """n held-out SyntheticDriving target frames (H,W,1) and their depth."""
+    from monodepth2_torch.data import SyntheticDriving
+
+    held = SyntheticDriving(n=n, target_size=(WIDTH, HEIGHT), seed=9999)
+    return [held[i][held.target_id] for i in range(n)], [held.gt_depth_for(i) for i in range(n)]
+
+
+def eval_phase(torch, np, GS, ckpt, tmp, device="cuda") -> tuple:
+    """eval.load_model, eval_images and eval_depth_accuracy on the first
+    fit's last checkpoint; returns the record and the loaded model."""
+    from PIL import Image
+
+    from monodepth2_torch.device import synchronize
+    from monodepth2_torch.eval import eval_depth_accuracy, eval_images, load_model, make_infer_fn, sidecar_config
+    from monodepth2_torch.training import TrainConfig
+
+    t = time.perf_counter()
+    kind = torch.device(device).type
+    cfg = sidecar_config(ckpt)
+    check(cfg is not None and cfg.compute_dtype == "bfloat16", f"{ckpt}: sidecar config {cfg}")
+    # the caller's cfg names another encoder: the sidecar's architecture wins
+    caller = TrainConfig(target_size=(WIDTH, HEIGHT), encoder_depth=34, compute_dtype=cfg.compute_dtype)
+    frames, gts = held_out(np, 8)
+    frame_dir, out_dir = pathlib.Path(tmp, "frames"), pathlib.Path(tmp, "disparity")
+    frame_dir.mkdir()
+    for i, f in enumerate(frames):
+        Image.fromarray((f[..., 0] * 255).round().astype(np.uint8), "L").save(frame_dir / f"{i:06d}.png")
+    reset(GS)
+    model = load_model(caller, ckpt, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.encoder.depth == 18, f"load_model built a ResNet-{model.encoder.depth}, not the sidecar's 18")
+    out = make_infer_fn(model, cfg.compute_dtype)(np.stack(frames[:2]))
+    check(out.device.type == kind and out.dtype == torch.float32 and tuple(out.shape) == (2, HEIGHT, WIDTH),
+          f"infer fn output {out.device} {out.dtype} {tuple(out.shape)}")
+    n = eval_images(cfg, ckpt, str(frame_dir), str(out_dir), batch_size=4, device=device)
+    pngs = sorted(p.name for p in out_dir.glob("*.png"))
+    check(n == 8 and pngs == [f"d-{i}.png" for i in range(8)], f"eval_images wrote {n}: {pngs}")
+    check(all(Image.open(out_dir / p).size == (WIDTH, HEIGHT) for p in pngs), "disparity PNG size")
+    metrics = eval_depth_accuracy(cfg, ckpt, frames, gts, batch_size=4, device=device)
+    check(all(np.isfinite(v) for v in metrics.values()), f"non-finite depth metrics {metrics}")
+    synchronize(torch.device(device))
+    launches = counts(GS)
+    check(all(v == 0 for v in launches.values()), f"inference launched a warp kernel: {launches}")
+    return dict(wall_s=round(time.perf_counter() - t, 3), checkpoint=pathlib.Path(ckpt).name, params=n_params,
+                images=n, depth_metrics=metrics, infer_device=str(out.device), launches=launches), model, cfg
+
+
+def export_phase(torch, np, GS, model, cfg, tmp, device="cuda") -> tuple:
+    """fp32 and bf16 artifacts exported and loaded on the card, against live
+    inference; a profiled artifact call. Returns the record and the fp32
+    artifact's path."""
+    from dataclasses import replace
+
+    from monodepth2_torch.device import synchronize
+    from monodepth2_torch.serving import export_inference, load_inference, make_inference_fn
+    from monodepth2_torch.tools.profile_breakdown import kernel_counts
+    from monodepth2_torch.utils.profiler import trace
+
+    t = time.perf_counter()
+    kind = torch.device(device).type
+    cfg32, cfg16 = replace(cfg, compute_dtype="float32"), replace(cfg, compute_dtype="bfloat16")
+    paths = {tag: f"{tmp}/depth.{tag}.pt2" for tag in ("fp32", "bf16")}
+    t_export = {}
+    for tag, c in (("fp32", cfg32), ("bf16", cfg16)):
+        t0 = time.perf_counter()
+        export_inference(model, c, paths[tag])
+        t_export[tag] = round(time.perf_counter() - t0, 3)
+    served32 = load_inference(paths["fp32"], device=device)
+    served16 = load_inference(paths["bf16"], device=device)
+    check(served32.meta["platforms"] == [kind] and served32.meta["input_shape"] == [None, HEIGHT, WIDTH, 1],
+          f"artifact meta {served32.meta}")
+    live32 = make_inference_fn(model, cfg32)
+    rng = np.random.default_rng(3)
+    errs, bf16 = {}, {}
+    # TF32 off, as the slice phase: the fp32 comparison is of fp32 arithmetic
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for n in (1, 3, 64):
+            x = rng.uniform(size=(n, HEIGHT, WIDTH, 1)).astype(np.float32)
+            out = served32(x)
+            with torch.inference_mode():
+                ref = live32(torch.from_numpy(x).to(device))
+            check(all(v.device.type == kind and v.dtype == torch.float32 for v in out.values()),
+                  f"artifact outputs {[(v.device, v.dtype) for v in out.values()]}")
+            check(tuple(out["disparity"].shape) == (n, HEIGHT, WIDTH, 1), f"disparity {tuple(out['disparity'].shape)}")
+            errs[n] = {k: float((out[k] - ref[k]).abs().max()) for k in ("disparity", "depth")}
+            check(max(errs[n].values()) <= 1e-5, f"fp32 artifact vs live at batch {n}: {errs[n]}")
+        out16 = served16(x)
+        d16, d32 = out16["disparity"], ref["disparity"]
+        rel_depth = float(((out16["depth"] - ref["depth"]).abs() / ref["depth"].abs()).max())
+        bf16 = dict(batch=64, disparity_max_abs=float((d16 - d32).abs().max()),
+                    disparity_mean_abs=float((d16 - d32).abs().mean()), depth_max_rel=rel_depth)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(out16["disparity"].dtype == torch.float32 and out16["disparity"].device.type == kind, "bf16 artifact output")
+    check(bf16["disparity_max_abs"] <= 3e-2 and bf16["disparity_mean_abs"] < 5e-3 and rel_depth <= 0.1,
+          f"bf16 artifact vs fp32 live: {bf16}")
+    # one artifact call in a profiler window, its input already on the card:
+    # CUDA kernels, and no copy between host and card (a CPU fallback needs one)
+    x_dev = torch.from_numpy(x).to(device)
+    graph_devices = {str(n.kwargs["device"]) for n in served32._module.graph.nodes if "device" in n.kwargs}
+    tensors = list(served32._module.parameters()) + list(served32._module.buffers())
+    check(all(t.device.type == kind for t in tensors), "an artifact tensor is not on the card")
+    check(all(d.startswith(kind) for d in graph_devices), f"the artifact's graph names devices {graph_devices}")
+    synchronize(torch.device(device))
+    with trace(host=True) as prof:
+        served32(x_dev)
+        synchronize(torch.device(device))
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [n for n in names if "memcpy" in n.lower()]
+    check(len(names) > 0 and not copies, f"profiled artifact call: {len(names)} device events, copies {copies}")
+    by_name = kernel_counts(names)
+    check(sum(by_name.values()) == 0, f"the artifact launched a warp kernel: {by_name}")
+    return dict(wall_s=round(time.perf_counter() - t, 3), export_s=t_export, fp32_vs_live_max_abs=errs,
+                bf16_vs_fp32_live=bf16, artifact_bytes={k: pathlib.Path(p).stat().st_size for k, p in paths.items()},
+                profiled_device_events=len(names), graph_devices=sorted(graph_devices)), paths["fp32"]
+
+
+def serve_phase(torch, np, GS, artifact, device="cuda") -> dict:
+    """build_server over the fp32 artifact on the card, 16 concurrent requests
+    of three encodings, each response against the artifact on its rows."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from monodepth2_torch.eval import _load_image
+    from monodepth2_torch.server import build_server
+    from monodepth2_torch.serving import load_inference
+
+    t = time.perf_counter()
+    served = load_inference(artifact, device=device)
+    server, batcher = build_server(artifact, host="127.0.0.1", port=0, buckets=(1, 4, 16, 64), warmup=True,
+                                   device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(4)
+    requests = []  # (body, headers, rows the artifact sees)
+    for i in range(16):
+        n = 1 + i % 3
+        if i == 15:
+            img = (rng.uniform(size=(HEIGHT * 2, WIDTH * 2)) * 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(img, "L").save(buf, format="PNG")
+            body = buf.getvalue()
+            rows = _load_image(io.BytesIO(body), WIDTH, HEIGHT, True)[None]
+            requests.append((body, {"Content-Type": "image/png"}, rows))
+        elif i % 2:
+            x8 = (rng.uniform(size=(n, HEIGHT, WIDTH, 1)) * 255).astype(np.uint8)
+            requests.append((x8.tobytes(), {"Content-Type": "application/octet-stream", "X-Input-Dtype": "uint8",
+                                            "X-Shape": f"{n},{HEIGHT},{WIDTH},1"}, x8.astype(np.float32) / 255.0))
+        else:
+            x = rng.uniform(size=(n, HEIGHT, WIDTH, 1)).astype(np.float32)
+            requests.append((x.tobytes(), {"Content-Type": "application/octet-stream",
+                                           "X-Shape": f"{n},{HEIGHT},{WIDTH},1"}, x))
+    results, errors = [None] * len(requests), []
+    start = threading.Barrier(len(requests))
+
+    def post(i):
+        body, headers, _ = requests[i]
+        req = urllib.request.Request(base + "/v1/depth", data=body, method="POST", headers=headers)
+        try:
+            start.wait(timeout=60)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = np.load(io.BytesIO(r.read()))
+                results[i] = {k: out[k] for k in out.files}
+        except Exception as e:  # noqa: BLE001 — reported below, and the phase fails on it
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,), daemon=True) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        check(not any(th.is_alive() for th in threads) and not errors, f"requests failed: {errors}")
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close(timeout=30)
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+    worst = {}
+    for i, (_, _, rows) in enumerate(requests):
+        want = {k: v.cpu().numpy() for k, v in served(rows).items()}
+        for k in ("disparity", "depth"):
+            worst[k] = max(worst.get(k, 0.0), float(np.abs(results[i][k] - want[k]).max()))
+    check(max(worst.values()) <= 1e-6, f"HTTP responses vs the artifact on their rows: {worst}")
+    check(health["requests"] == len(requests) and health["batches"] < health["requests"],
+          f"no coalescing: {health}")
+    launches = counts(GS)
+    check(all(v == 0 for v in launches.values()), f"serving launched a warp kernel: {launches}")
+    return dict(wall_s=round(time.perf_counter() - t, 3), requests=len(requests), max_abs_vs_artifact=worst,
+                healthz=health, launches=launches)
 
 
 def main() -> int:
@@ -421,7 +655,14 @@ def main() -> int:
     from monodepth2_torch.models import Model
     from monodepth2_torch.ops.cuda import _lib
     from monodepth2_torch.simple_depth import fit_simple_depth
-    from monodepth2_torch.tools import profile_breakdown, warp_kernel_bench
+    from monodepth2_torch.tools import (
+        http_serving_bench,
+        model_block_bench,
+        profile_breakdown,
+        serving_bench,
+        ssl_driving_experiment,
+        warp_kernel_bench,
+    )
     from monodepth2_torch.training import TrainConfig, TrainContext, create_train_state, make_train_step
     from monodepth2_torch.utils.profiler import time_ms
 
@@ -604,9 +845,52 @@ def main() -> int:
     # graph_bf16: the scanned step with the network in bf16
     emit("graph_bf16", **graph_bf16_phase(torch, np, ctx))
 
-    # fit: the trainer's entry point, with its checkpoints and resume
-    fitted = fit_phase(torch, np, GS)
-    emit("fit", **fitted)
+    # fit: the trainer's entry point, with its checkpoints and resume; then
+    # the serving path on the first fit's checkpoint, which runs no warp
+    with tempfile.TemporaryDirectory() as work:
+        fitted, ckpt = fit_phase(torch, np, GS, work)
+        emit("fit", **fitted)
+        reset(GS)
+        record, model, eval_cfg = eval_phase(torch, np, GS, ckpt, work)
+        emit("eval", **record)
+        record, artifact = export_phase(torch, np, GS, model, eval_cfg, work)
+        emit("export", **record)
+        # TF32 off, as in the export phase: responses are held to 1e-6
+        torch.backends.cudnn.allow_tf32 = False
+        emit("serve", **serve_phase(torch, np, GS, artifact))
+        torch.backends.cudnn.allow_tf32 = True
+    serving_launches = counts(GS)
+
+    # serve_bench: the serving tools in process, shortened
+    t = time.perf_counter()
+    served = serving_bench.main(["--iters", "10"])
+    check(len(served["rows"]) == 4 * 2 * 4 and all(np.isfinite(r["ms_per_batch"]) for r in served["rows"]),
+          f"serving bench rows {served['rows']}")
+    http = http_serving_bench.main(["--concurrency", "1,8,32", "--requests", "96"])
+    check(all(np.isfinite(lv["img_per_s"]) for lv in http["levels"]), f"http bench {http['levels']}")
+    check(http["levels"][-1]["device_batches"] < http["levels"][-1]["requests"], f"no coalescing at 32: {http}")
+    blocks = model_block_bench.main(["--iters", "10"])
+    check(all(np.isfinite(v) for v in blocks["blocks"]["ms"].values()), f"block times {blocks}")
+    emit("serve_bench", wall_s=round(time.perf_counter() - t, 3),
+         serving={f"{r['variant']}/{r['io']}/{r['batch']}": [r["ms_per_batch"], r["img_per_s"]]
+                  for r in served["rows"]},
+         http=[{k: lv[k] for k in ("concurrency", "img_per_s", "p50_ms", "p95_ms", "rows_per_device_call")}
+               for lv in http["levels"]],
+         blocks_ms=blocks["blocks"]["ms"], inference_b64_bf16=blocks["inference"], power_limit=smi)
+
+    # ssl: the convergence experiment (recipe C), shortened
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ssl = ssl_driving_experiment.main([
+            "--steps", "100", "--n-scenes", "20", "--n-val", "4", "--eval-every", "50", "--min-depth", "1",
+            "--max-depth", "80", "--disp-reg", "0.01", "--disp-reg-steps", "2500", "--out", work,
+        ])
+        check(pathlib.Path(ssl["history_path"]).exists(), "history.json not written")
+    hist = ssl["history"]
+    check([r["step"] for r in hist] == [50, 100], f"ssl history steps {[r['step'] for r in hist]}")
+    check(all(np.isfinite(r["loss"]) and 0 < r["mean_disparity"] < 1 for r in hist), f"ssl history {hist}")
+    check(all(np.isfinite(r[k]) for r in hist for k in ("val_abs_rel", "val_a1", "val_rmse")), f"ssl val {hist}")
+    emit("ssl", wall_s=round(time.perf_counter() - t, 3), history=hist, baseline=ssl["baseline"])
 
     # warp_bench: the path that runs the image VJP
     reset(GS)
@@ -753,6 +1037,7 @@ def main() -> int:
             launches=launches[k.name], fit_wrapper_calls=fitted["first_fit"]["wrapper_calls"][k.name],
             launches_fit_by_name=fit_launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
             launches_in_10_replays=graph["replayed_kernels_by_name"][f"{k.name}_kernel"],
+            launches_serving=serving_launches[k.name],
             max_abs_err=err, **rows[k.name], C3=rows_c3[k.name],
         ))
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)

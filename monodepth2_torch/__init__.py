@@ -20,8 +20,14 @@ Layout:
              (CUDA-graph) step, checkpoint, the fit loop
   data/      datasets (KITTI, Depth10k, DChain, synthetic), the loader and
              the pinned copy to the card
-  utils/     step timing, the profiler hook, PNG output
-  bridge.py  JAX params/stats pytree <-> the port's state_dict
+  utils/     step timing, the profiler hook, PNG output, depth metrics
+  bridge.py  JAX params/stats pytree <-> the port's state_dict, and the JAX
+             package's checkpoints read without jax
+  eval.py    batched inference from a checkpoint of either package, disparity
+             PNGs, the median-scaled depth accuracy
+  serving.py the torch.export artifact: export, load (no model code), call
+  server.py  the micro-batching HTTP server over an artifact
+  tools/     measurement entry points and the convergence experiment
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """monodepth2_torch and chip_smoke.py import neither jax, optax nor the JAX
-package; the port's entry points refuse a CUDA device they do not have; and
-chip_smoke.py fails without a card or without the repository beside it."""
+package; the port's entry points (the trainer's and the serving path's)
+refuse a CUDA device they do not have; and chip_smoke.py fails without a
+card or without the repository beside it."""
 
 import os
 import pathlib
@@ -47,26 +48,41 @@ def test_port_imports_without_jax():
                    "monodepth2_torch.data.synthetic", "monodepth2_torch.data.kitti",
                    "monodepth2_torch.data.depth10k"}}
         assert trainer <= set(names), trainer - set(names)
+        serving = {{"monodepth2_torch.eval", "monodepth2_torch.serving", "monodepth2_torch.server",
+                   "monodepth2_torch.utils.metrics", "monodepth2_torch.tools.serving_bench",
+                   "monodepth2_torch.tools.http_serving_bench", "monodepth2_torch.tools.model_block_bench",
+                   "monodepth2_torch.tools.ssl_driving_experiment", "monodepth2_torch.tools.serving_warmup_check"}}
+        assert serving <= set(names), serving - set(names)
         # PIL is imported only where a dataset decodes a file: the trainer
         # writes its PNGs without it
         assert "PIL" not in sys.modules
         print(len(names), "modules")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 32
+    assert int(proc.stdout.split()[0]) >= 40
 
 
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from monodepth2_torch.device import resolve_device
+    from monodepth2_torch.eval import eval_depth_accuracy, eval_images, eval_video, load_model
     from monodepth2_torch.models import Model
-    from monodepth2_torch.training import TrainContext
+    from monodepth2_torch.server import build_server
+    from monodepth2_torch.serving import load_inference
+    from monodepth2_torch.training import TrainConfig, TrainContext
 
+    cfg = TrainConfig(target_size=(64, 32))
     for call in (
         lambda: resolve_device(),
         lambda: Model.create(),
         lambda: TrainContext.create([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]], 64, 32),
+        lambda: load_model(cfg, "no-checkpoint"),
+        lambda: eval_images(cfg, "no-checkpoint", ".", "out"),
+        lambda: eval_video(cfg, "no-checkpoint", "v.mp4", "out"),
+        lambda: eval_depth_accuracy(cfg, "no-checkpoint", [], []),
+        lambda: load_inference("no-artifact.pt2"),
+        lambda: build_server("no-artifact.pt2", port=0, warmup=False),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

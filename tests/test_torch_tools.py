@@ -1,6 +1,10 @@
 """The port's measurement entry points — monodepth2_torch.bench,
 tools.warp_kernel_bench and tools.profile_breakdown — at a tiny size on the
-CPU (64×32 frames, batch 1, 2 warped images, 1-2 iterations), and
+CPU (64×32 frames, batch 1, 2 warped images, 1-2 iterations); the serving
+tools (tools.serving_bench, http_serving_bench, model_block_bench,
+serving_warmup_check) and the
+convergence experiment (tools.ssl_driving_experiment, 4 steps, then
+resumed) at 64×32; and
 monodepth2_torch.utils.profiler against the JAX package's. On the CPU the
 entry points report host-clock times and no device metric (roofline, MFU,
 idle share are None); on a machine with no card they refuse to run unless
@@ -14,7 +18,17 @@ import pytest
 import torch
 
 from monodepth2_torch import bench
-from monodepth2_torch.tools import k3_sweep, kernel_ab, profile_breakdown, warp_kernel_bench
+from monodepth2_torch.tools import (
+    http_serving_bench,
+    k3_sweep,
+    kernel_ab,
+    model_block_bench,
+    profile_breakdown,
+    serving_bench,
+    serving_warmup_check,
+    ssl_driving_experiment,
+    warp_kernel_bench,
+)
 from monodepth2_torch.utils import profiler
 from monodepth2_tpu.utils import profiler as jax_profiler
 
@@ -141,7 +155,10 @@ def test_kernel_counts_by_name():
     }
 
 
-@pytest.mark.parametrize("entry", [bench.main, warp_kernel_bench.main, profile_breakdown.main])
+@pytest.mark.parametrize("entry", [
+    bench.main, warp_kernel_bench.main, profile_breakdown.main, serving_bench.main, http_serving_bench.main,
+    model_block_bench.main, ssl_driving_experiment.main, serving_warmup_check.main,
+])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -381,3 +398,95 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         with pytest.raises(ValueError):
             with profiler.trace(host=False):
                 pass
+
+
+SMALL = ["--device", "cpu", "--width", "64", "--height", "32"]
+
+
+def test_serving_bench_on_cpu(capsys):
+    """Live and artifact, fp32 and bf16, each batch, both I/O modes."""
+    out = serving_bench.main(SMALL + ["--batches", "1,3", "--iters", "1"])
+    printed = _printed(capsys)
+    assert printed[:-1] == out["rows"]
+    assert [(r["variant"], r["io"], r["batch"]) for r in out["rows"]] == [
+        (f"{kind}_{tag}", io, b) for tag in ("fp32", "bf16") for kind in ("live", "artifact")
+        for b in (1, 3) for io in ("device", "host")
+    ]
+    for row in out["rows"]:
+        _assert_finite(row, ("ms_per_batch", "img_per_s"))
+        assert row["img_per_s"] == pytest.approx(row["batch"] / row["ms_per_batch"] * 1e3)
+    assert out["artifact_bytes"]["bf16"] < out["artifact_bytes"]["fp32"]
+    assert (out["device"], out["nvidia_smi"]) == ("cpu", None)
+
+
+def test_http_serving_bench_on_cpu(capsys):
+    out = http_serving_bench.main(SMALL + ["--concurrency", "1,4", "--requests", "8", "--buckets", "1,4",
+                                           "--fields", "disparity", "--input-dtype", "uint8"])
+    printed = _printed(capsys)
+    assert printed[:-1] == out["levels"]
+    assert [lv["concurrency"] for lv in out["levels"]] == [1, 4]
+    for lv in out["levels"]:
+        _assert_finite(lv, ("img_per_s", "ms_per_request", "p50_ms", "p95_ms", "rows_per_device_call"))
+        assert 1 <= lv["device_batches"] <= 8 and lv["fields"] == "disparity" and lv["input_dtype"] == "uint8"
+    assert out["levels"][0]["device_batches"] == 8  # one client: one call a request
+    assert (out["device"], out["nvidia_smi"]) == ("cpu", None)
+
+
+def test_serving_warmup_check_on_cpu(capsys):
+    """Each cuDNN benchmark setting × warm-up place × pass × level, with the
+    device calls that served it, timed by worker and bucket."""
+    out = serving_warmup_check.main(SMALL + ["--concurrency", "1,2", "--requests", "4"])
+    assert _printed(capsys)[:-1] == out["rows"]
+    assert [(r["cudnn_benchmark"], r["warmup"], r["pass_"], r["concurrency"]) for r in out["rows"]] == [
+        (bench, warm, p, c) for bench in (True, False) for warm in ("caller", "workers") for p in "AB" for c in (1, 2)
+    ]
+    for r in out["rows"]:
+        _assert_finite(r, ("img_per_s", "p50_ms", "p95_ms", "max_ms"))
+        assert 1 <= r["device_calls"] == r["device_batches"] <= 4
+        assert all(b in (1, 4, 16, 64) and w.startswith("bucket-batcher-") for _, w, b in r["slowest_calls"])
+    assert torch.backends.cudnn.benchmark is False  # restored
+
+
+def test_model_block_bench_on_cpu(capsys):
+    out = model_block_bench.main(SMALL + ["--batch", "2", "--infer-batch", "2", "--iters", "1"])
+    assert _printed(capsys) == [out["blocks"], out["inference"]]
+    assert set(out["blocks"]["ms"]) == {"encoder_fwd", "depth_decoder_fwd", "pose_decoder_fwd",
+                                        "depth_decoder_fwd_zeropad"}
+    _assert_finite(out["blocks"]["ms"], out["blocks"]["ms"])
+    _assert_finite(out["inference"], ("ms_per_batch", "img_per_s"))
+    assert out["inference"]["device"] == "cpu"
+
+
+def test_zero_padded_changes_only_the_padding():
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.nn.core import Conv
+
+    decoder = Model.create(device="cpu").depth_decoder
+    zero = model_block_bench.zero_padded(decoder)
+    pads = [(a.padding, b.padding) for a, b in zip(decoder.modules(), zero.modules()) if isinstance(a, Conv)]
+    assert any(a == "reflect" for a, _ in pads)
+    assert all(b == (1 if a == "reflect" else a) for a, b in pads)  # 3×3 convs: pad 1
+    for a, b in zip(decoder.state_dict().values(), zero.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+def test_ssl_driving_experiment_on_cpu_resumes(tmp_path, capsys):
+    """4 steps with a val row every 2, then a run to 6 that resumes from the
+    newest checkpoint and appends its row; the newest two checkpoints kept."""
+    args = SMALL + ["--n-scenes", "8", "--n-val", "2", "--eval-every", "2",
+                    "--min-depth", "1", "--max-depth", "80", "--disp-reg", "0.01", "--disp-reg-steps", "4",
+                    "--out", str(tmp_path)]
+    out = ssl_driving_experiment.main(args + ["--steps", "4"])
+    assert out["resumed_at"] == 0 and out["step"] == 4
+    assert [r["step"] for r in out["history"]] == [2, 4]
+    for r in out["history"]:
+        _assert_finite(r, ("loss", "mean_disparity", "val_abs_rel", "val_a1", "val_rmse", "rot_err_deg"))
+        assert 0 < r["mean_disparity"] < 1 and r["loss_step"] == r["step"]
+    _assert_finite(out["baseline"], ("abs_rel", "a1", "rmse"))
+    again = ssl_driving_experiment.main(args + ["--steps", "6"])
+    assert again["resumed_at"] == 4 and [r["step"] for r in again["history"]] == [2, 4, 6]
+    assert again["history"][:2] == out["history"]
+    with open(tmp_path / "history.json") as f:
+        assert json.load(f) == again["history"]
+    assert sorted(p.name for p in (tmp_path / "ckpts").glob("*.npz")) == ["ckpt-4.npz", "ckpt-6.npz"]
+    assert "resuming from" in capsys.readouterr().out
