@@ -106,6 +106,40 @@ wall time:
   breakdown  python -m monodepth2_torch.tools.profile_breakdown, shortened,
            with its graph_step block: by kernel name K1 = K2 = 1 and K3 = 0
            a replayed step
+  native   the native decoder (monodepth2_torch/data/native.py): whether the
+           compiler finds png.h and jpeglib.h, the library built from a
+           clean build directory; where it builds, its frames against PIL's
+           on 1241×376 PNGs (gray within 1/255, an RGB resize within a mean
+           3/255); where it does not, available() False with the missing
+           header named in build_error() and a dataset that asked for it
+           decoding through PIL, with a warning. Then tools.loader_bench
+           (48 triplets of 1241×376 PNGs to 416×128, 1/2/4 workers, native
+           and PIL) beside the replayed bf16 step's img/s from a shortened
+           bench, and the host's CPU and cores
+  dp       data parallelism: (a) one rank in this process, on the world-1
+           NCCL mesh that parallel.make_mesh() sets up alone: fit over it
+           (ResNet-18 416×128 gray batch 4, steps_per_call 2, fp32, TF32
+           off, 10 steps) in a profiler window against fit without a mesh
+           from the same seed on the same data order: the step-1 loss
+           within 1e-6 rel, steps 2-3 within 2e-3, the replayed steps 4-10
+           within 0.25 (fp32 trajectories part: up to 5.9e-2 measured on
+           the H100; the plain fit through the plain warp is reported
+           beside as a yardstick); the collectives the all-reduce wrapper saw while
+           the graph was captured (4 a BatchNorm + grads + metrics = 82);
+           K1 = K2 = 10 and K3 = 0 by name. Then 5 replayed data-parallel
+           micro-steps, each against two eager twins loaded from its state:
+           the eager data-parallel step (loss within 1e-4 rel, params 1e-6
+           and Adam's moments 1e-4 relative L2, as the graph phase) and the
+           plain step (loss within 1e-6 rel, grads 5e-2 relative L2: the
+           hand-written BatchNorm's fp32 rounding against cuDNN's, up to
+           7.6e-3 measured). Then the world-1
+           data-parallel scanned step against the plain one
+           (configs/kitti_ssl.json, bf16), windows in turns.
+           (b) tools.dp_worker as 2 processes on this one card over gloo
+           with CUDA tensors (NCCL refuses two ranks on one device), fit at
+           64×32 in float64 with the plain warp, beside a 1-process run:
+           the ranks' states equal bitwise, and within 1e-9 of each leaf's
+           largest entry of the 1-process run's
   times    per kernel at the main-path shape, C = 1 and (under "C3") C = 3:
            kernel and library (F.grid_sample, aten.grid_sampler_2d_backward
            with the one output the kernel computes) times with the L2
@@ -127,7 +161,8 @@ Without a CUDA device, or beside no monodepth2_torch package, it prints no
 result and exits nonzero. Every subprocess has a timeout; the threads are
 fit's data loader's, daemon threads that stop once fit drops its iterator,
 and the servers' and their clients', each shut down or joined with a
-timeout.
+timeout; the dp phase's worker processes are waited for with a timeout and
+killed after.
 """
 
 from __future__ import annotations
@@ -638,6 +673,346 @@ def serve_phase(torch, np, GS, artifact, device="cuda") -> dict:
                 healthz=health, launches=launches)
 
 
+def native_phase(torch, np, device="cuda") -> dict:
+    """The native decoder: the compiler asked for its headers, the library
+    built from a clean build directory; where it builds, its frames held
+    against PIL's on a tree of 1241×376 frames (grayscale within 1/255, an
+    RGB resize within tests/test_native_loader.py's mean 3/255); where it
+    does not, unavailable with the missing header named, and a dataset that
+    asks for it decoding through PIL. Then tools.loader_bench at its
+    defaults (48 triplets of 1241×376 PNGs, 1, 2 and 4 workers) with a
+    shortened bench: triplets/s beside the replayed step's img/s."""
+    import shutil
+    import subprocess
+    import warnings
+
+    from PIL import Image
+
+    from monodepth2_torch.data import KittiDataset, native
+    from monodepth2_torch.tools import loader_bench
+
+    headers = {}
+    for h in ("png.h", "jpeglib.h"):
+        try:
+            proc = subprocess.run([*native._cxx(), "-E", "-x", "c++", "-"], input=f"#include <{h}>\n",
+                                  capture_output=True, text=True, timeout=60)
+            headers[h] = proc.returncode == 0
+        except OSError:  # no compiler: no header either
+            headers[h] = False
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    native.reset()
+    t = time.perf_counter()
+    built = native.available()
+    out = dict(headers=headers, built=built, build_s=round(time.perf_counter() - t, 3))
+    with tempfile.TemporaryDirectory() as root:
+        loader_bench.build_tree(root, 1, *loader_bench.KITTI_ODOMETRY_SIZE)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ds = KittiDataset(root, "00", target_size=(WIDTH, HEIGHT), use_native=True)
+        if built:
+            check(all(headers.values()) and ds.decoder == "native", f"native built, headers {headers}, {ds.decoder}")
+            frame = f"{root}/sequences/00/image_0/000000.png"
+            w, h = loader_bench.KITTI_ODOMETRY_SIZE
+            gray = native.load_resize(frame, w, h, 1)[..., 0]
+            pil = np.asarray(Image.open(frame).convert("L"), np.float32) / 255.0
+            rgb = np.stack([np.asarray(Image.open(frame))] * 3, axis=-1)
+            rgb[..., 1] = 255 - rgb[..., 1]
+            Image.fromarray(rgb, "RGB").save(f"{root}/rgb.png")
+            small = native.load_resize(f"{root}/rgb.png", WIDTH, HEIGHT, 3)
+            pil_small = np.asarray(Image.open(f"{root}/rgb.png").resize((WIDTH, HEIGHT), Image.BILINEAR),
+                                   np.float32) / 255.0
+            out.update(gray_max_abs_err=float(np.abs(gray - pil).max()),
+                       rgb_resize_mean_abs_err=float(np.abs(small - pil_small).mean()))
+            check(out["gray_max_abs_err"] <= 1 / 255 and out["rgb_resize_mean_abs_err"] < 3 / 255,
+                  f"native frames vs PIL: {out}")
+        else:
+            err = native.build_error() or ""
+            missing = [h for h in headers if not headers[h]]
+            check(bool(missing) and any(h in err for h in missing) and ds.decoder == "pil"
+                  and any("native decoder unavailable" in str(w.message) for w in caught),
+                  f"the native decoder did not build, headers {headers}: {err[-2000:]}")
+            out["build_error_tail"] = err.strip().splitlines()[-3:]
+    bench = loader_bench.main(["--device", device, "--step-steps", "10"])
+    rows = [r for r in bench["rows"] if "triplets_per_s" in r]
+    check(len(rows) == (6 if built else 3) and all(np.isfinite(r["triplets_per_s"]) for r in rows),
+          f"loader bench rows {bench['rows']}")
+    out.update(rows=bench["rows"], step=bench["step"], frames=bench["frames"],
+               host=[bench["host_cpu"], bench["host_cores"], bench["host_load"]])
+    return out
+
+
+class _Reordered:
+    """`dataset` seen through a permutation of its indices."""
+
+    def __init__(self, dataset, perm):
+        self.dataset, self.perm = dataset, perm
+        for attr in ("K", "target_id", "source_ids"):
+            setattr(self, attr, getattr(dataset, attr))
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.perm[i])]
+
+
+def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
+    """Data parallelism: (a) one rank in this process, on the mesh that
+    make_mesh() sets up alone (a world-size-1 NCCL group): fit over it at
+    the slice's width (ResNet-18, 416×128 gray, batch 4, steps_per_call 2,
+    fp32, TF32 off, 10 steps) against fit without a mesh from the same seed
+    on the same data order (the mesh's sampler owns the shuffle, so the
+    plain fit reads the dataset through the permutation that maps its
+    loader's order onto the sampler's); the collectives captured into the
+    graph, counted by the all-reduce wrapper; K1 and K2 once a step and K3
+    never, by name in a profile; replayed micro-steps against eager twins;
+    then the world-1 data-parallel scanned step against the plain one in
+    bf16 (configs/kitti_ssl.json), windows in turns. (b) tools.dp_worker as 2 processes on this one card over gloo
+    with CUDA tensors (NCCL refuses two ranks on one device), fit at 64×32
+    in float64 through the plain warp (the kernels take fp32, whose rounding
+    Adam would raise to lr-sized steps and hide a wrong reduction), beside a
+    1-process run over gloo: both ranks' final states the same, bitwise, and
+    params and BN statistics within 1e-9 of each leaf's largest entry of the
+    1-process run's (float64 on the CPU: ~1e-11)."""
+    import dataclasses
+    import os
+    import socket
+    import subprocess
+
+    import torch.distributed as dist
+
+    from monodepth2_torch.bench import load_config, setup
+    from monodepth2_torch.data import SyntheticDriving
+    from monodepth2_torch.device import synchronize
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.nn.core import BatchNorm
+    from monodepth2_torch.parallel import (
+        COUNTS,
+        make_mesh,
+        make_parallel_scanned_train_step,
+        make_parallel_train_step,
+        reset_counts,
+    )
+    from monodepth2_torch.tools.profile_breakdown import kernel_counts
+    from monodepth2_torch.training import (
+        TrainConfig,
+        TrainContext,
+        create_train_state,
+        make_scanned_train_step,
+        make_train_step,
+    )
+    from monodepth2_torch.training.state import WARMUP_STEPS
+    from monodepth2_torch.training import loop
+    from monodepth2_torch.utils.profiler import trace, wall_ms
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out = {}
+    mesh = make_mesh(device=device)
+    check((mesh.size, mesh.rank, mesh.backend, mesh.capturable) == (1, 0, "nccl" if on_card else "gloo", on_card),
+          f"mesh {mesh}")
+    n_bn = sum(isinstance(m, BatchNorm) for m in Model.create(depth=18, in_channels=1, device=device).modules())
+    try:
+        # (a) fit over the world-1 mesh against fit without one
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        cudnn.deterministic, cudnn.benchmark = True, False
+        cfg = TrainConfig(target_size=(WIDTH, HEIGHT), batch_size=BATCH, in_channels=1, steps_per_call=2,
+                          log_every=0, save_every=0, log_dir=f"{tmp}/dp/logs", save_dir=f"{tmp}/dp/ckpts")
+        driving = SyntheticDriving(n=48, target_size=(WIDTH, HEIGHT))
+        losses, recording_to = {}, []
+
+        def recording(make):
+            def build(*args, **kw):
+                step, key = make(*args, **kw), recording_to[-1]
+                losses[key] = []
+
+                def call(state, batch):
+                    state, m, aux = step(state, batch)
+                    losses[key] += m["loss"].tolist()
+                    return state, m, aux
+                return call
+            return build
+
+        patched = (loop.make_parallel_scanned_train_step, loop.make_scanned_train_step)
+        loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = map(recording, patched)
+        try:
+            reset(GS)
+            reset_counts()
+            synchronize(dev)
+            t = time.perf_counter()
+            recording_to.append("mesh")
+            with trace(host=False) as prof:
+                state, _ = loop.fit(cfg, driving, mesh=mesh, max_steps=10, verbose=False, device=device)
+                synchronize(dev)
+            mesh_s = time.perf_counter() - t
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            mesh_counts, wrapper = dict(COUNTS), counts(GS)
+            order_s = np.arange(len(driving))
+            np.random.default_rng([cfg.seed, 0]).shuffle(order_s)  # the sampler's epoch 0
+            order_l = np.arange(len(driving))
+            np.random.default_rng(cfg.seed + 1000003).shuffle(order_l)  # the loader's first epoch
+            perm = np.empty_like(order_s)
+            perm[order_l] = order_s
+            plains = {}
+            # the plain fit, and as a yardstick of what fp32 rounding alone
+            # does to a trajectory, the plain fit through the plain warp
+            for key, method in (("plain", None), ("plain_gather", "gather")):
+                recording_to.append(key)
+                plain_cfg = dataclasses.replace(cfg, log_dir=f"{tmp}/{key}/logs", save_dir=f"{tmp}/{key}/ckpts",
+                                                warp_method=method)
+                plains[key], _ = loop.fit(plain_cfg, _Reordered(driving, perm), max_steps=10, verbose=False,
+                                          device=device)
+        finally:
+            loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = patched
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"])]
+        yardstick = [abs(a - b) / abs(b) for a, b in zip(losses["plain_gather"], losses["plain"])]
+        by_name = kernel_counts(names)
+        want = {"grid_sample_fwd_kernel": 10, "grid_sample_bwd_uv_kernel": 10, "grid_sample_bwd_img_kernel": 0}
+        out["fit"] = dict(
+            steps=state.step, s=round(mesh_s, 3), losses=losses["mesh"], plain_losses=losses["plain"],
+            loss_rel_diff=rel, gather_vs_kernel_loss_rel_diff=yardstick,
+            param_rel_l2=rel_l2(state.model.parameters(), plains["plain"].model.parameters()),
+            collectives=mesh_counts, collectives_per_step=4 * n_bn + 2, launches_by_name=by_name,
+            nccl_device_activities=sum("nccl" in n.lower() for n in names), wrapper_launches=wrapper,
+        )
+        check(len(rel) == 10 and state.step == plains["plain"].step == 10 and all(np.isfinite(losses["mesh"])),
+              f"dp fit steps {out['fit']}")
+        # step 1: the same weights and batch, so the same loss up to the
+        # hand-written BatchNorm's fp32 rounding (1.7e-7 on the H100); steps
+        # 2-3 (eager) within 2e-3 (1.5e-4 measured). From step 4 on, fp32
+        # trajectories part (Adam turns rounding in near-zero grads into
+        # lr-sized steps): up to 5.9e-2 by step 10 in the H100 runs, where
+        # the plain fit through the plain warp parts from the kernel one by
+        # up to 3.0e-2, and float64 fits on the CPU agree to 1e-14. So those
+        # steps are held only to 0.25, against a run that diverges; the
+        # twins below hold each replayed step sharply
+        check(rel[0] <= 1e-6 and max(rel[1:3]) <= 2e-3 and max(rel) <= 0.25, f"dp fit losses vs plain fit: {rel}")
+        # one capture: 2 sums a BatchNorm forward, 2 in its backward, the
+        # grads and the metrics; the warm-up steps issue as many each
+        check(mesh_counts["captured"] == (4 * n_bn + 2) * on_card, f"collectives captured {mesh_counts}, n_bn {n_bn}")
+        check(by_name == want, f"dp fit launches by kernel name {by_name}, want {want}")
+
+        # each replayed data-parallel micro-step against two eager twins from
+        # its state: the eager data-parallel step (the capture) and the
+        # plain step (the semantics at world size 1)
+        ctx = TrainContext.create(driving.K, WIDTH, HEIGHT, device=device)
+        state = create_train_state(Model.create(depth=18, in_channels=1, device=device), cfg)
+        twins = {k: create_train_state(Model.create(depth=18, in_channels=1, device=device), cfg)
+                 for k in ("dp", "plain")}
+        scanned = make_parallel_scanned_train_step(ctx, cfg, mesh)
+        eager = {"dp": make_parallel_train_step(ctx, cfg, mesh), "plain": make_train_step(ctx, cfg)}
+        stack = torch.from_numpy(np.stack([np.stack([driving[int(j)] for j in order_s[4 * i: 4 * i + 4]])
+                                           for i in range(8)])).to(dev)
+        scanned(state, stack[:WARMUP_STEPS])
+        rows = []
+        for i in range(WARMUP_STEPS, 8):
+            for twin in twins.values():
+                load_twin(twin, state)
+            reset_counts()
+            _, m, _ = scanned(state, stack[i: i + 1])  # the first of these captures
+            captured = COUNTS["captured"]
+            tm = {k: eager[k](twins[k], stack[i])[1] for k in twins}
+            grads = {k: [p.grad for p in twins[k].model.parameters()] for k in twins}
+            rows.append(dict(
+                loss=m["loss"].item(), **{f"{k}_twin_loss": tm[k]["loss"].item() for k in twins},
+                param_rel_l2=rel_l2(state.model.parameters(), twins["dp"].model.parameters()),
+                **{f"{key}_rel_l2": rel_l2(adam_state(state, key), adam_state(twins["dp"], key))
+                   for key in ("exp_avg", "exp_avg_sq")},
+                dp_vs_plain_grad_rel_l2=rel_l2(grads["dp"], grads["plain"]),
+                dp_vs_plain_param_rel_l2=rel_l2(twins["dp"].model.parameters(), twins["plain"].model.parameters()),
+                collectives_captured=captured,
+            ))
+        for r in rows:
+            check(abs(r["loss"] - r["dp_twin_loss"]) <= 1e-4 * abs(r["dp_twin_loss"]) and r["param_rel_l2"] <= 1e-6
+                  and r["exp_avg_rel_l2"] <= 1e-4 and r["exp_avg_sq_rel_l2"] <= 1e-4,
+                  f"replayed data-parallel step vs its eager twin: {r}")
+            # at world size 1 the two differ only by the hand-written
+            # BatchNorm's fp32 rounding against cuDNN's, which the backward's
+            # cancellations raise (up to 7.6e-3 measured on the H100); a wrong
+            # BatchNorm backward moves the grads by O(1)
+            check(abs(r["dp_twin_loss"] - r["plain_twin_loss"]) <= 1e-6 * abs(r["plain_twin_loss"])
+                  and r["dp_vs_plain_grad_rel_l2"] <= 5e-2, f"world-1 data-parallel step vs the plain step: {r}")
+        check(rows[0]["collectives_captured"] == (4 * n_bn + 2) * on_card, f"captured {rows[0]}")
+        out["twins"] = rows
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+        # the world-1 data-parallel step against the plain one, bf16
+        cfg_b = load_config(target_size=(WIDTH, HEIGHT), batch_size=BATCH, in_channels=1)
+        spc = cfg_b.steps_per_call
+        ctx, plain_state, _, frames = setup(cfg_b, dev)
+        states = {"plain": plain_state, "dp": create_train_state(
+            Model.create(depth=18, in_channels=1, device=device), cfg_b)}
+        steps = {"plain": make_scanned_train_step(ctx, cfg_b), "dp": make_parallel_scanned_train_step(ctx, cfg_b, mesh)}
+        stack = frames.unsqueeze(0).expand(spc, *frames.shape)
+        last = {}
+        reset_counts()
+        for m in ("plain", "dp"):
+            for _ in range(2):
+                _, last[m], _ = steps[m](states[m], stack)
+        captured = COUNTS["captured"]
+        windows = {"plain": [], "dp": []}
+        for m in ("plain", "dp", "dp", "plain"):
+            windows[m] += [ms / spc for ms in wall_ms(lambda: steps[m](states[m], stack), dev, 3, warmup=0, windows=1)]
+        synchronize(dev)
+        with trace(host=False) as prof:
+            steps["dp"](states["dp"], stack)
+            synchronize(dev)
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(all(np.isfinite(last[m]["loss"].tolist()).all() for m in last), f"bf16 losses {last}")
+        out["step"] = dict(
+            config="configs/kitti_ssl.json (bf16, steps_per_call 10), world-1 NCCL mesh",
+            plain_ms=min(windows["plain"]), dp_ms=min(windows["dp"]), windows=windows,
+            collectives_captured=captured, nccl_device_activities_per_step=sum("nccl" in n.lower() for n in names) / spc,
+            device_activities_per_step=len(names) / spc,
+        )
+        check(captured == (4 * n_bn + 2) * on_card, f"bf16 collectives captured {captured}")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) 2 ranks on this card over gloo with CUDA tensors, beside 1
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    base = [sys.executable, "-m", "monodepth2_torch.tools.dp_worker", "fit", "--device", device, "--backend", "gloo",
+            "--dtype", "float64", "--warp-method", "gather"]
+    runs = {"sp": [base + ["--out", f"{tmp}/sp", "--save-reference", f"{tmp}/sp/ref-p{{rank}}.npz"]]}
+    runs["mp"] = [base + ["--out", f"{tmp}/mp", "--save-reference", f"{tmp}/mp/ref-p{{rank}}.npz",
+                          "--world-size", "2", "--rank", str(r), "--port", str(port)] for r in range(2)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    procs = {k: [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds] for k, cmds in runs.items()}
+    logs = {}
+    try:
+        for k, ps in procs.items():
+            logs[k] = [q.communicate(timeout=600)[0] for q in ps]
+    finally:
+        for ps in procs.values():
+            for q in ps:
+                q.kill()
+    for k, ps in procs.items():
+        for q, log in zip(ps, logs[k]):
+            check(q.returncode == 0, f"dp_worker {k} failed: {log[-3000:]}")
+    reports = {k: [json.loads(log.strip().splitlines()[-1]) for log in logs[k]] for k in logs}
+    refs = {k: [np.load(f"{tmp}/{k}/ref-p{r}.npz") for r in range(len(logs[k]))] for k in logs}
+    mp, sp = refs["mp"][0], refs["sp"][0]
+    same = all(np.array_equal(mp[k], refs["mp"][1][k]) for k in mp.files)
+    errs = {k: float(np.abs(mp[k] - sp[k]).max() / max(np.abs(sp[k]).max(), 1e-300))
+            for k in sp.files if sp[k].dtype.kind == "f"}
+    worst = max(errs, key=errs.get)
+    out["two_ranks"] = dict(
+        s=round(time.perf_counter() - t, 3), backend=[r["backend"] for r in reports["mp"]],
+        devices=[r["device"] for r in reports["mp"]], steps=[r["step"] for r in reports["mp"] + reports["sp"]],
+        state_sha256_equal=reports["mp"][0]["state_sha256"] == reports["mp"][1]["state_sha256"],
+        params_stats_equal=same, vs_one_process_worst=[worst, errs[worst]],
+    )
+    check(out["two_ranks"]["state_sha256_equal"] and same, f"the two ranks' states differ: {out['two_ranks']}")
+    check(errs[worst] <= 1e-9 and out["two_ranks"]["steps"] == [4, 4, 4], f"2 ranks vs 1: {out['two_ranks']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -933,6 +1308,18 @@ def main() -> int:
          graph_window={k: breakdown["graph_window"][k] for k in window_keys},
          top_device_ms_per_step=breakdown["idle_window"]["top_device_ms_per_step"][:6],
          graph_top_device_ms_per_step=breakdown["graph_window"]["top_device_ms_per_step"][:6])
+
+    # native: the host decoder, built here or reported, and the loader's
+    # triplets/s beside the replayed step's img/s
+    t = time.perf_counter()
+    native = native_phase(torch, np)
+    emit("native", wall_s=round(time.perf_counter() - t, 3), **native, power_limit=smi)
+
+    # dp: the data-parallel paths, one rank in process and two on this card
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        dp = dp_phase(torch, np, GS, work)
+    emit("dp", wall_s=round(time.perf_counter() - t, 3), **dp, power_limit=smi)
 
     # ---- times at the main-path shape (near-identity uv; the image VJP also
     # on the warp bench's smooth warp and on scattered uv, whose clamped

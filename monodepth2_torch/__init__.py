@@ -17,9 +17,14 @@ Layout:
   nn/        Conv (reflect or zero padding), BatchNorm, pools, upsampling
   models/    ResNet encoder, DepthDecoder, PoseDecoder, Model
   training/  config, multi-scale loss, train state, the eager and the scanned
-             (CUDA-graph) step, checkpoint, the fit loop
-  data/      datasets (KITTI, Depth10k, DChain, synthetic), the loader and
-             the pinned copy to the card
+             (CUDA-graph) step, checkpoint, the fit loop (one process, or one
+             rank of a data-parallel mesh)
+  parallel/  data parallelism across processes: the mesh over a process
+             group's ranks (one card each), the GSPMD- and shard_map-semantics
+             steps, the process group's set-up, per-process input sharding
+  data/      datasets (KITTI, Depth10k, DChain, synthetic), the native image
+             decoder (native/mdloader.cpp, built here) with PIL where it does
+             not build, the loader and the pinned copy to the card
   utils/     step timing, the profiler hook, PNG output, depth metrics
   bridge.py  JAX params/stats pytree <-> the port's state_dict, and the JAX
              package's checkpoints read without jax

@@ -3,8 +3,9 @@ async batched loader and the pinned, side-stream copy to the card.
 
 Reference: src/kitty.jl (KittyDataset), src/dtk.jl (Depth10k, find_static),
 src/dchain.jl (DChain), DataLoaders.jl usage at src/Monodepth.jl:130,153.
-Datasets yield numpy (L,H,W,C) float32 triplets; PIL is imported only where
-a file is decoded.
+Datasets yield numpy (L,H,W,C) float32 triplets. KITTI and Depth10k files
+decode through the native decoder (`data.native`, built at first use) or,
+where it does not build, through PIL, imported only where a file is decoded.
 """
 
 from .augment import Compose, FlipX, resize_bilinear

@@ -1,6 +1,7 @@
 """CommaAI Depth10k triplet dataset + static-scene curation, copied from
-monodepth2_tpu/data/depth10k.py (reference: src/dtk.jl) without the native
-decoder: strips decode through PIL, imported where a strip is read.
+monodepth2_tpu/data/depth10k.py (reference: src/dtk.jl). Strips decode
+through the native decoder (data/native.py) when it builds, else through
+PIL, imported where a strip is read; `decoder` says which.
 
 Each file is a 1248-wide strip of 3 horizontally-concatenated 416×128 frames.
 Fixed intrinsics: focal 2648/4.63461538462, principal point at center
@@ -21,6 +22,7 @@ import torch
 from ..device import resolve_device
 from ..ops.losses import automasking_loss
 from .augment import resize_bilinear
+from .kitti import native_decoder
 
 DTK_WIDTH, DTK_HEIGHT = 416, 128
 DTK_FOCAL = 2648.0 / 4.63461538462
@@ -34,6 +36,7 @@ class Depth10k:
         augmentations=None,
         grayscale: bool = False,
         target_size: Optional[Tuple[int, int]] = None,
+        use_native: bool = True,
         cache_decoded: bool = False,
     ):
         """target_size (width, height) resizes each frame AFTER the strip
@@ -46,6 +49,8 @@ class Depth10k:
         self.augmentations = augmentations
         self.grayscale = grayscale
         self.width, self.height = target_size or (DTK_WIDTH, DTK_HEIGHT)
+        self._native = native_decoder(use_native)
+        self.decoder = "pil" if self._native is None else "native"
         ratio = float(np.mean([self.width / DTK_WIDTH, self.height / DTK_HEIGHT]))
         f = DTK_FOCAL * ratio
         self.K = np.asarray(
@@ -87,12 +92,16 @@ class Depth10k:
         from PIL import Image
 
         path = os.path.join(self.dir, self.files[i])
-        with Image.open(path) as im:
-            im = im.convert("L" if self.grayscale else "RGB")
-            strip = np.asarray(im, np.float32) / 255.0
-        if strip.ndim == 2:
-            strip = strip[..., None]
-        frames = [strip[:, j * DTK_WIDTH : (j + 1) * DTK_WIDTH] for j in range(3)]
+        if self._native is not None:
+            stacked = self._native.load_strip(path, DTK_WIDTH, DTK_HEIGHT, 3, 1 if self.grayscale else 3)
+            frames = [stacked[j] for j in range(3)]
+        else:
+            with Image.open(path) as im:
+                im = im.convert("L" if self.grayscale else "RGB")
+                strip = np.asarray(im, np.float32) / 255.0
+            if strip.ndim == 2:
+                strip = strip[..., None]
+            frames = [strip[:, j * DTK_WIDTH : (j + 1) * DTK_WIDTH] for j in range(3)]
         if (self.width, self.height) != (DTK_WIDTH, DTK_HEIGHT):
             frames = [resize_bilinear(f, self.width, self.height) for f in frames]
         return frames

@@ -1,6 +1,8 @@
 """KITTI odometry triplet dataset, copied from monodepth2_tpu/data/kitti.py
-(reference: src/kitty.jl) without the native decoder, which the port has not
-taken over yet: frames decode through PIL, imported where a frame is read.
+(reference: src/kitty.jl). Frames decode through the native decoder
+(data/native.py) when it builds, else through PIL, imported where a frame is
+read; `decoder` says which ("native" or "pil"), and a fallback the caller
+did not ask for warns with the build's error.
 
 Layout expected (same as the reference):
     <root>/sequences/<seq>/calib.txt       — P0 projection on the first line
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import os
 import threading
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,6 +34,19 @@ def parse_calib_K(calib_path: str) -> np.ndarray:
     vals = np.asarray([float(v) for v in line.split()], np.float64)
     P = vals.reshape(3, 4)
     return P[:3, :3].copy()
+
+
+def native_decoder(use_native: bool):
+    """The native module when asked for and built, else None (PIL). A
+    fallback warns with the build's error, so that it is not silent."""
+    if not use_native:
+        return None
+    from . import native
+
+    if native.available():
+        return native
+    warnings.warn(f"native decoder unavailable, decoding through PIL: {native.build_error()}", stacklevel=3)
+    return None
 
 
 def construct_intrinsic(fx: float, fy: float, cx: float, cy: float) -> np.ndarray:
@@ -49,6 +65,7 @@ class KittiDataset:
         augmentations=None,
         grayscale: bool = True,
         frame_ids: Tuple[int, ...] = (0, 1, 2),
+        use_native: bool = True,
         cache_decoded: bool = False,
     ):
         from PIL import Image
@@ -77,6 +94,8 @@ class KittiDataset:
 
         self.target_id = 1
         self.source_ids = (0, 2)
+        self._native = native_decoder(use_native)
+        self.decoder = "pil" if self._native is None else "native"
 
         # RAM cache of resized uint8 frames (53 KB/frame at 416×128 gray):
         # every epoch after the first is decode-free. Values are u8-quantized
@@ -96,12 +115,15 @@ class KittiDataset:
             if hit is not None:
                 return hit.astype(np.float32) / 255.0
         path = os.path.join(self.frames_dir, f"{idx:06d}.png")
-        with Image.open(path) as im:
-            im = im.convert("L" if self.grayscale else "RGB")
-            im = im.resize((self.width, self.height), Image.BILINEAR)
-            arr = np.asarray(im, np.float32) / 255.0
-        if arr.ndim == 2:
-            arr = arr[..., None]
+        if self._native is not None:
+            arr = self._native.load_resize(path, self.width, self.height, 1 if self.grayscale else 3)
+        else:
+            with Image.open(path) as im:
+                im = im.convert("L" if self.grayscale else "RGB")
+                im = im.resize((self.width, self.height), Image.BILINEAR)
+                arr = np.asarray(im, np.float32) / 255.0
+            if arr.ndim == 2:
+                arr = arr[..., None]
         if self._cache is not None:
             u8 = np.clip(np.round(arr * 255.0), 0, 255).astype(np.uint8)
             with self._cache_lock:

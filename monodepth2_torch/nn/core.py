@@ -11,6 +11,7 @@ Free functions that the losses call on images (`reflect_pad`, `mean_pool`,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple, Union
 
@@ -100,6 +101,26 @@ def _bf16(v: float) -> float:
     return torch.tensor(v, dtype=torch.bfloat16).item()
 
 
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, global_sum: Callable[[Tensor], Tensor]):
+    """Inside, every training-mode forward of a BatchNorm in `model`
+    normalizes by the moments of the global batch and updates its running
+    statistics from them: `global_sum(t)` sums t over the ranks,
+    differentiably, so that the backward couples the ranks as the
+    single-device step on the global batch does. Data-parallel steps
+    (parallel/dp.py, GSPMD semantics) hold it across the forward and the
+    backward, whose rematerialized forward (TrainConfig.remat) takes the
+    same moments."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.global_sum = global_sum
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.global_sum = None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over N,H,W (core.py:114-158): eps 1e-5, momentum 0.1; the
     running variance takes the unbiased batch variance, normalization the
@@ -119,17 +140,24 @@ class BatchNorm(nn.BatchNorm2d):
     `frozen_stats` set: a training-mode forward normalizes as above and
     leaves the running stats and the batch count as they are. The recompute
     of a rematerialized forward (TrainConfig.remat) runs so, or it would
-    update them a second time in the step."""
+    update them a second time in the step.
+
+    `global_sum` set (`global_batch_stats`, a data-parallel step): a
+    training-mode forward takes the moments of the global batch instead
+    (`_global_forward`); unset, nothing changes."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(ch, eps=eps, momentum=momentum)
         self.frozen_stats = False
+        self.global_sum: Optional[Callable[[Tensor], Tensor]] = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         super().reset_parameters()
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.training and self.global_sum is not None:
+            return self._global_forward(x, self.global_sum)
         if not (self.training and x.dtype == torch.bfloat16 and self.running_mean.dtype == torch.float32):
             if self.training and self.frozen_stats:
                 # the same call on copies of the stats: the same kernels, so
@@ -144,6 +172,46 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.frozen_stats:
             self._bf16_running_update(x.detach())
         return y
+
+    def _global_forward(self, x: Tensor, global_sum: Callable[[Tensor], Tensor]) -> Tensor:
+        """Normalize by the global batch's moments: per channel the count and
+        the sum summed over the ranks give the mean, then the sum of squared
+        deviations from it gives the biased variance (two passes, as
+        jnp.var, stable in fp32). A bf16 input is summed and normalized in
+        fp32, as F.batch_norm does, and the output cast back. The running
+        statistics take the global moments and the global count's n/(n-1):
+        a bf16 input's rounded as `_bf16_running_update` rounds the local
+        ones, others in the input's precision (core.py:139-147)."""
+        c = x.shape[1]
+        acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+        shape = (1, c, 1, 1)
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            xa = x.to(acc)
+            totals = global_sum(torch.cat([xa.sum(dim=(0, 2, 3)), xa.new_full((1,), xa.numel() // c)]))
+            n = totals[c]
+            mean = totals[:c] / n
+            d = xa - mean.view(shape)
+            var = global_sum((d * d).sum(dim=(0, 2, 3))) / n
+            y = d * torch.rsqrt(var + self.eps).view(shape) * self.weight.view(shape) + self.bias.view(shape)
+        if not self.frozen_stats:
+            self._global_running_update(mean.detach(), var.detach(), n.detach(), x.dtype == torch.bfloat16)
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _global_running_update(self, mean: Tensor, var: Tensor, n: Tensor, bf16: bool) -> None:
+        m = self.momentum
+        unbias = n / torch.clamp(n - 1, min=1)
+        stats = torch.stack((self.running_mean, self.running_var))
+        if bf16 and self.running_mean.dtype == torch.float32:
+            # the rounding of _bf16_running_update, on the global moments
+            moments = torch.stack((mean, var)).to(torch.bfloat16).float()
+            moments[1].mul_(unbias.to(torch.bfloat16).float())
+            stats = stats.to(torch.bfloat16).float().mul_(_bf16(1 - m)).add_(moments, alpha=m)
+        else:
+            moments = torch.stack((mean, var * unbias)).to(stats.dtype)
+            stats = (1 - m) * stats + m * moments
+        torch._foreach_copy_([self.running_mean, self.running_var], [stats[0], stats[1]])
+        self.num_batches_tracked.add_(1)
 
     @torch.no_grad()
     def _bf16_running_update(self, x: Tensor) -> None:

@@ -19,6 +19,7 @@ captures one step as a CUDA graph and replays it K times a call.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
@@ -141,12 +142,19 @@ def _tree_map(fn, tree):
     return type(tree)(_tree_map(fn, v) for v in tree)
 
 
-def _update(ctx: TrainContext, cfg: TrainConfig, state: TrainState, step: Tensor, frames: Tensor, Ks):
+def _update(ctx: TrainContext, cfg: TrainConfig, state: TrainState, step: Tensor, frames: Tensor, Ks, dp=None):
     """One update of `state` in place at the step count held by the tensor
     `step`, which it then advances: the schedules, the loss, its backward
     into the grads (None, or a captured step's own buffers), the clip, Adam.
     Returns the METRICS row (in the loss's dtype) and the loss's aux. A host
-    sync happens only under cfg.debug_nans, which checks the loss."""
+    sync happens only under cfg.debug_nans, which checks the loss.
+
+    `dp` (a parallel.dp.DataParallel) makes it one rank's update of a
+    data-parallel step: the forward and backward run inside its
+    `batch_stats` (the global batch's BatchNorm moments under GSPMD
+    semantics), the grads are averaged over the ranks before the clip and
+    Adam (the running statistics too under shard_map semantics), and the
+    loss and mean disparity are reduced as its semantics say."""
     model, optimizer = state.model, state.optimizer
     auto_loss = None
     if cfg.automasking:
@@ -156,14 +164,17 @@ def _update(ctx: TrainContext, cfg: TrainConfig, state: TrainState, step: Tensor
         for group in optimizer.param_groups:
             group["lr"].copy_(lr)
     reg = disp_reg_schedule(cfg, step)
-    loss, aux = train_loss(
-        model, frames, ctx, cfg, auto_loss=auto_loss, train=True, disp_reg_weight=reg, Ks=Ks,
-    )
-    if cfg.debug_nans and not bool(torch.isfinite(loss)):
-        # the counterpart of jax_debug_nans (loop.py:308-316); anomaly mode,
-        # which fit turns on with it, catches a NaN born in the backward
-        raise FloatingPointError(f"non-finite loss {loss.item()} at step {int(step)}")
-    loss.backward()
+    with dp.batch_stats(model) if dp is not None else contextlib.nullcontext():
+        loss, aux = train_loss(
+            model, frames, ctx, cfg, auto_loss=auto_loss, train=True, disp_reg_weight=reg, Ks=Ks,
+        )
+        if cfg.debug_nans and not bool(torch.isfinite(loss)):
+            # the counterpart of jax_debug_nans (loop.py:308-316); anomaly mode,
+            # which fit turns on with it, catches a NaN born in the backward
+            raise FloatingPointError(f"non-finite loss {loss.item()} at step {int(step)}")
+        loss.backward()
+    if dp is not None:
+        dp.after_backward(model)
     if cfg.grad_clip > 0:
         clip_by_global_norm_((p.grad for p in model.parameters() if p.grad is not None), cfg.grad_clip)
     optimizer.step()
@@ -172,28 +183,32 @@ def _update(ctx: TrainContext, cfg: TrainConfig, state: TrainState, step: Tensor
     # detached, so that no autograd graph outlives the step: a graph kept
     # alive keeps its grad accumulators on the stream of their creation
     loss, aux = loss.detach(), _tree_map(Tensor.detach, aux)
+    mean_disparity = aux["disparity"].mean()
+    if dp is not None:
+        loss, mean_disparity = dp.reduce_metrics(loss, mean_disparity)
     row = torch.stack([
         loss,
-        aux["disparity"].mean(),
+        mean_disparity,
         (lr if lr is not None else torch.full((), cfg.lr, device=device)).to(dtype),
         (reg if reg is not None else torch.zeros((), device=device)).to(dtype),
     ])
     return row, aux
 
 
-def make_train_step(ctx: TrainContext, cfg: TrainConfig) -> Callable:
+def make_train_step(ctx: TrainContext, cfg: TrainConfig, dp=None) -> Callable:
     """Build the train step: step_fn(state, batch) -> (state, metrics, aux).
 
     batch is frames (N,L,H,W,C), or {"frames": ..., "K": (N,3,3)} with
     per-item intrinsics. metrics hold the METRICS as device tensors; reading
-    them synchronizes, so a loop reads them only to log.
+    them synchronizes, so a loop reads them only to log. `dp`: one rank of a
+    data-parallel step (parallel/dp.py builds these), batch being its rows.
     """
 
     def step_fn(state: TrainState, batch):
         frames, Ks = _split(batch)
         step = torch.full((), state.step, dtype=torch.int64, device=frames.device)
         state.optimizer.zero_grad(set_to_none=True)
-        row, aux = _update(ctx, cfg, state, step, frames, Ks)
+        row, aux = _update(ctx, cfg, state, step, frames, Ks, dp)
         state.step += 1
         return state, dict(zip(METRICS, row.unbind())), aux
 
@@ -210,10 +225,12 @@ class _CapturedStep:
     graph's input buffers and replays it; the graph advances its own step
     tensor, set from the host's count once a call. The warp kernels K1/K2
     run inside the graph, where their wrappers' launch counters do not see
-    them (a replay runs no Python)."""
+    them (a replay runs no Python). A data-parallel step's collectives (`dp`,
+    over NCCL) run in the warm-up steps, which create NCCL's communicator,
+    and are then captured with the rest."""
 
-    def __init__(self, ctx: TrainContext, cfg: TrainConfig):
-        self.ctx, self.cfg = ctx, cfg
+    def __init__(self, ctx: TrainContext, cfg: TrainConfig, dp=None):
+        self.ctx, self.cfg, self.dp = ctx, cfg, dp
         self.state: Optional[TrainState] = None
         self.warm = 0
         self.side = None
@@ -227,7 +244,7 @@ class _CapturedStep:
         with torch.cuda.stream(self.side):
             step = torch.full((), state.step, dtype=torch.int64, device=frames.device)
             state.optimizer.zero_grad(set_to_none=True)
-            row, aux = _update(self.ctx, self.cfg, state, step, frames, Ks)
+            row, aux = _update(self.ctx, self.cfg, state, step, frames, Ks, self.dp)
             row_out.copy_(row)
         main.wait_stream(self.side)
         self.warm += 1
@@ -240,7 +257,7 @@ class _CapturedStep:
         state.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.row, self.aux = _update(self.ctx, self.cfg, state, self.step, self.frames, self.Ks)
+            self.row, self.aux = _update(self.ctx, self.cfg, state, self.step, self.frames, self.Ks, self.dp)
         self.graph = graph
 
     def __call__(self, state: TrainState, frames: Tensor, Ks):
@@ -274,7 +291,7 @@ class _CapturedStep:
         return state, {key: rows[:, j] for j, key in enumerate(METRICS)}, aux
 
 
-def make_scanned_train_step(ctx: TrainContext, cfg: TrainConfig) -> Callable:
+def make_scanned_train_step(ctx: TrainContext, cfg: TrainConfig, dp=None) -> Callable:
     """K train steps per call (state.py:145-183).
 
     Takes frames stacked (K, N, L, H, W, C), or a dict of (K, ...)-stacked
@@ -285,15 +302,16 @@ def make_scanned_train_step(ctx: TrainContext, cfg: TrainConfig) -> Callable:
 
     On the card the micro-steps replay one captured CUDA graph
     (`_CapturedStep`), the step function being bound to the state of its
-    first call. On the CPU, and under cfg.debug_nans (which reads the loss
-    on the host each micro-step), it runs K eager steps.
+    first call. On the CPU, under cfg.debug_nans (which reads the loss on
+    the host each micro-step) and for a data-parallel step (`dp`) whose
+    collectives a graph cannot capture (gloo's), it runs K eager steps.
     """
-    step = make_train_step(ctx, cfg)
-    captured = _CapturedStep(ctx, cfg)
+    step = make_train_step(ctx, cfg, dp)
+    captured = _CapturedStep(ctx, cfg, dp)
 
     def scanned(state: TrainState, batch):
         frames, Ks = _split(batch)
-        if frames.is_cuda and not cfg.debug_nans:
+        if frames.is_cuda and not cfg.debug_nans and (dp is None or dp.capturable):
             return captured(state, frames, Ks)
         outs = []
         for i in range(frames.shape[0]):

@@ -1,8 +1,9 @@
 """monodepth2_torch.data (copied datasets, the loader, the pinned device
 prefetch) and utils.viz against the JAX package's: the same numpy batches
 on tests/test_data.py's KITTI and Depth10k fixture trees, the synthetic
-datasets, DChain with per-item K and FlipX, bitwise. The JAX package's
-datasets decode through PIL here (use_native=False), as the port's do."""
+datasets, DChain with per-item K and FlipX, bitwise. Both packages'
+datasets decode through PIL here (use_native=False); the native decoder is
+held in tests/test_torch_native.py."""
 
 import threading
 import time
@@ -35,7 +36,7 @@ def _equal(a, b):
 @pytest.mark.parametrize("size", [(48, 24), (64, 32)])
 @pytest.mark.parametrize("cache", [False, True])
 def test_kitti_matches_jax(kitti_root, size, cache):  # noqa: F811
-    t = T.KittiDataset(kitti_root, "00", target_size=size, cache_decoded=cache)
+    t = T.KittiDataset(kitti_root, "00", target_size=size, use_native=False, cache_decoded=cache)
     j = J.KittiDataset(kitti_root, "00", target_size=size, use_native=False, cache_decoded=cache)
     assert len(t) == len(j) == 3
     np.testing.assert_array_equal(t.K, j.K)
@@ -48,7 +49,7 @@ def test_kitti_matches_jax(kitti_root, size, cache):  # noqa: F811
 @pytest.mark.parametrize("kw", [dict(), dict(grayscale=True), dict(target_size=(640, 192)), dict(cache_decoded=True)])
 def test_depth10k_matches_jax(dtk_root, kw):  # noqa: F811
     root, files = dtk_root
-    t, j = T.Depth10k(root, files, **kw), J.Depth10k(root, files, use_native=False, **kw)
+    t, j = T.Depth10k(root, files, use_native=False, **kw), J.Depth10k(root, files, use_native=False, **kw)
     np.testing.assert_array_equal(t.K, j.K)
     for i in range(len(t)):
         _equal(t[i], j[i])
@@ -56,7 +57,8 @@ def test_depth10k_matches_jax(dtk_root, kw):  # noqa: F811
 
 def test_find_static_matches_jax(dtk_root):  # noqa: F811
     root, files = dtk_root
-    t, j = T.Depth10k(root, files, grayscale=True), J.Depth10k(root, files, grayscale=True, use_native=False)
+    t = T.Depth10k(root, files, grayscale=True, use_native=False)
+    j = J.Depth10k(root, files, grayscale=True, use_native=False)
     for alpha in (0.001, 0.03, 10.0):
         assert T.find_static(t, alpha, batch_size=2, device="cpu") == J.find_static(j, alpha, batch_size=2)
 
@@ -100,7 +102,8 @@ def test_dchain_per_item_K_matches_jax():
 def test_loader_matches_jax(kitti_root, workers):  # noqa: F811
     """Two shuffled epochs with FlipX (randomness keyed per seed, epoch and
     item) give the JAX loader's batches, whatever the worker count."""
-    t = T.DataLoader(T.KittiDataset(kitti_root, "00", target_size=(48, 32), augmentations=T.FlipX(0.5)),
+    t = T.DataLoader(T.KittiDataset(kitti_root, "00", target_size=(48, 32), augmentations=T.FlipX(0.5),
+                                    use_native=False),
                      batch_size=2, seed=7, num_workers=workers)
     j = J.DataLoader(J.KittiDataset(kitti_root, "00", target_size=(48, 32), augmentations=J.FlipX(0.5),
                                     use_native=False), batch_size=2, seed=7, num_workers=1)

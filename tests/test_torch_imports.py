@@ -53,6 +53,17 @@ def test_port_imports_without_jax():
                    "monodepth2_torch.tools.http_serving_bench", "monodepth2_torch.tools.model_block_bench",
                    "monodepth2_torch.tools.ssl_driving_experiment", "monodepth2_torch.tools.serving_warmup_check"}}
         assert serving <= set(names), serving - set(names)
+        parallel = {{"monodepth2_torch.parallel", "monodepth2_torch.parallel.mesh", "monodepth2_torch.parallel.dp",
+                    "monodepth2_torch.parallel.distributed", "monodepth2_torch.parallel.comm",
+                    "monodepth2_torch.data.native", "monodepth2_torch.tools.loader_bench",
+                    "monodepth2_torch.tools.batch_scaling_bench", "monodepth2_torch.tools.dp_worker"}}
+        assert parallel <= set(names), parallel - set(names)
+        # importing the native binding builds nothing; a process group is set
+        # up only when asked for
+        from monodepth2_torch.data import native
+        import torch.distributed
+        assert native._lib is None and native._error is None
+        assert not torch.distributed.is_initialized()
         # PIL is imported only where a dataset decodes a file: the trainer
         # writes its PNGs without it
         assert "PIL" not in sys.modules
@@ -68,6 +79,7 @@ def test_entry_points_refuse_missing_cuda():
     from monodepth2_torch.device import resolve_device
     from monodepth2_torch.eval import eval_depth_accuracy, eval_images, eval_video, load_model
     from monodepth2_torch.models import Model
+    from monodepth2_torch.parallel import make_mesh
     from monodepth2_torch.server import build_server
     from monodepth2_torch.serving import load_inference
     from monodepth2_torch.training import TrainConfig, TrainContext
@@ -83,10 +95,12 @@ def test_entry_points_refuse_missing_cuda():
         lambda: eval_depth_accuracy(cfg, "no-checkpoint", [], []),
         lambda: load_inference("no-artifact.pt2"),
         lambda: build_server("no-artifact.pt2", port=0, warmup=False),
+        lambda: make_mesh(),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -172,8 +172,17 @@ def test_fit_rejects_frame_layout_mismatch(cfg, attr, value):
 
 
 def test_fit_mesh_not_ported(cfg):
-    with pytest.raises(NotImplementedError):
-        _fit(cfg, SyntheticTriplets(n=4, target_size=cfg.target_size), mesh=object())
+    """fit over a mesh is ported (tests/test_torch_multiprocess.py): what is
+    not a parallel.Mesh is refused, and so is a mesh on another device type
+    than the one asked for."""
+    from monodepth2_torch.parallel import Mesh
+
+    ds = SyntheticTriplets(n=4, target_size=cfg.target_size)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        _fit(cfg, ds, mesh=object())
+    on_card = Mesh(size=1, rank=0, device=torch.device("cuda", 0), backend="nccl")
+    with pytest.raises(ValueError, match="over a mesh on cuda"):
+        _fit(cfg, ds, mesh=on_card)
 
 
 def test_fit_on_cuda_refuses_without_a_card(cfg):

@@ -19,9 +19,11 @@ import torch
 
 from monodepth2_torch import bench
 from monodepth2_torch.tools import (
+    batch_scaling_bench,
     http_serving_bench,
     k3_sweep,
     kernel_ab,
+    loader_bench,
     model_block_bench,
     profile_breakdown,
     serving_bench,
@@ -157,7 +159,8 @@ def test_kernel_counts_by_name():
 
 @pytest.mark.parametrize("entry", [
     bench.main, warp_kernel_bench.main, profile_breakdown.main, serving_bench.main, http_serving_bench.main,
-    model_block_bench.main, ssl_driving_experiment.main, serving_warmup_check.main,
+    model_block_bench.main, ssl_driving_experiment.main, serving_warmup_check.main, loader_bench.main,
+    batch_scaling_bench.main,
 ])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
@@ -490,3 +493,40 @@ def test_ssl_driving_experiment_on_cpu_resumes(tmp_path, capsys):
         assert json.load(f) == again["history"]
     assert sorted(p.name for p in (tmp_path / "ckpts").glob("*.npz")) == ["ckpt-4.npz", "ckpt-6.npz"]
     assert "resuming from" in capsys.readouterr().out
+
+
+def test_loader_bench_on_cpu(capsys):
+    """Native and PIL rows at each worker count (or the native decoder's
+    build error), the replayed step beside them and the feed margin."""
+    out = loader_bench.main([
+        "--device", "cpu", "--n-triplets", "4", "--src-width", "124", "--src-height", "38", "--width", "64",
+        "--height", "32", "--batch-size", "1", "--workers", "1,2", "--step-steps", "1",
+    ])
+    printed = _printed(capsys)
+    assert printed[-1] == out and printed[0]["metric"] == "kitti_64x32_train_images_per_sec_per_chip"
+    from monodepth2_torch.data import native
+
+    decoders = ("native", "pil") if native.available() else ("pil",)
+    rows = [r for r in out["rows"] if "triplets_per_s" in r]
+    assert [(r["decoder"], r["workers"]) for r in rows] == [(d, w) for d in decoders for w in (1, 2)]
+    for r in rows:
+        _assert_finite(r, ("triplets_per_s", "feed_margin"))
+        assert r["feed_margin"] == pytest.approx(r["triplets_per_s"] / out["step"]["graph_img_per_s"])
+    if not native.available():
+        assert out["rows"][0] == {"decoder": "native", "error": native.build_error()}
+    _assert_finite(out["step"], ("graph_img_per_s", "graph_ms_per_step", "eager_img_per_s"))
+    assert out["frames"] == "124x38 gray PNG -> 64x32" and out["device"] == "cpu" and out["host_cores"] >= 1
+
+
+def test_batch_scaling_bench_on_cpu(capsys):
+    out = batch_scaling_bench.main([
+        "--device", "cpu", "--batches", "1", "--width", "64", "--height", "32", "--steps-per-call", "2",
+    ])
+    assert _printed(capsys) == out["rows"]
+    assert [r["batch"] for r in out["rows"]] == [1]
+    for r in out["rows"]:
+        _assert_finite(r, ("ms_per_step", "img_per_s", "loss"))
+        assert r["ms_per_step"] == min(r["ms_per_step_windows"]) and len(r["ms_per_step_windows"]) == 2
+        assert r["img_per_s"] == pytest.approx(r["batch"] / (r["ms_per_step"] / 1e3))
+        assert r["steps_per_call"] == 2 and r["size"] == [64, 32]
+    assert out["config"] == "configs/kitti_ssl.json" and out["device"] == "cpu"
