@@ -122,17 +122,24 @@ wall time:
            off, 10 steps) in a profiler window against fit without a mesh
            from the same seed on the same data order: the step-1 loss
            within 1e-6 rel, steps 2-3 within 2e-3, the replayed steps 4-10
-           within 0.25 (fp32 trajectories part: up to 5.9e-2 measured on
-           the H100; the plain fit through the plain warp is reported
-           beside as a yardstick); the collectives the all-reduce wrapper saw while
-           the graph was captured (4 a BatchNorm + grads + metrics = 82);
-           K1 = K2 = 10 and K3 = 0 by name. Then 5 replayed data-parallel
-           micro-steps, each against two eager twins loaded from its state:
-           the eager data-parallel step (loss within 1e-4 rel, params 1e-6
-           and Adam's moments 1e-4 relative L2, as the graph phase) and the
-           plain step (loss within 1e-6 rel, grads 5e-2 relative L2: the
-           hand-written BatchNorm's fp32 rounding against cuDNN's, up to
-           7.6e-3 measured). Then the world-1
+           within 0.25 as a sanity bound (fp32 trajectories part: up to
+           0.12 measured on the H100; the plain fit through the plain warp
+           is reported beside as a yardstick); the collectives the
+           all-reduce wrapper saw while the graph was captured (4 a
+           BatchNorm + grads + metrics = 82); K1 = K2 = 10 and K3 = 0 by
+           name. What holds the semantics over the trajectory: the same
+           two fits in float64 through the plain warp at 64×32, 10 steps,
+           each step's loss and the final params within 1e-12 relative
+           (1.9e-14 measured). Then 5 replayed data-parallel micro-steps,
+           each against two eager twins loaded from its state: the eager
+           data-parallel step (loss within 1e-4 rel, params 1e-6 and
+           Adam's moments 1e-4 relative L2, as the graph phase) and the
+           plain step (loss within 1e-6 rel, grads 1.6e-2 relative L2);
+           and from each state a float64 plain step, TF32 off, against
+           which the plain fp32 step (cuDNN's BatchNorm) and the
+           data-parallel fp32 step (the hand-written one), all three
+           through the plain warp, are each within 1.6e-2 relative L2 (2×
+           the larger error measured, 7.75e-3). Then the world-1
            data-parallel scanned step against the plain one
            (configs/kitti_ssl.json, bf16), windows in turns.
            (b) tools.dp_worker as 2 processes on this one card over gloo
@@ -140,6 +147,22 @@ wall time:
            64×32 in float64 with the plain warp, beside a 1-process run:
            the ranks' states equal bitwise, and within 1e-9 of each leaf's
            largest entry of the 1-process run's
+  cli      the command line, python -m monodepth2_torch.cli, each subcommand
+           a process with a timeout in a temporary directory, concurrent
+           where none reads another's output (any nonzero exit fails the
+           phase): train --data driving (16 scenes, 416×128, ResNet-18,
+           batch 4, bf16) to step 12 ("done at step 12", ckpt-12,
+           metrics.jsonl with finite losses, params unlike the seed's) and
+           the same command resumed to 16; train --distributed under
+           torchrun, one process over NCCL, to step 4; --mesh 2 in one
+           process refused with the torchrun line; eval-depth --synthetic
+           --limit 4 (finite abs_rel); export --fp32 --platforms cuda
+           (meta: the sidecar's 416×128×1) and --platforms tpu,cpu refused;
+           serve on a free port, --no-warmup, one POST within 1e-6 of
+           serving.load_inference on the same input, TF32 off in both;
+           eval-image on 4 PNGs (4 disparity PNGs); simple-depth --iters 20
+           (the loss falls); profile --steps 2 (its trace.json names K1 and
+           K2 twice each, K3 never)
   times    per kernel at the main-path shape, C = 1 and (under "C3") C = 3:
            kernel and library (F.grid_sample, aten.grid_sampler_2d_backward
            with the one output the kernel computes) times with the L2
@@ -154,15 +177,16 @@ wall time:
 
 The line before the last is {"kernels": [...]}, where the `launches` of K1
 and K2 are the first fit's, counted by kernel name, and K3's the warp
-bench's (training never runs it), and `launches_serving` those of the
-eval, export and serve phases (0); the last line is
+bench's (training never runs it), `launches_serving` those of the
+eval, export and serve phases (0) and `launches_cli_profile` those in the
+trace of the cli phase's `profile --steps 2`; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
 Without a CUDA device, or beside no monodepth2_torch package, it prints no
 result and exits nonzero. Every subprocess has a timeout; the threads are
 fit's data loader's, daemon threads that stop once fit drops its iterator,
 and the servers' and their clients', each shut down or joined with a
-timeout; the dp phase's worker processes are waited for with a timeout and
-killed after.
+timeout; the dp phase's worker processes and the cli phase's are waited
+for with a timeout and killed after (the server is terminated).
 """
 
 from __future__ import annotations
@@ -756,6 +780,124 @@ class _Reordered:
         return self.dataset[int(self.perm[i])]
 
 
+def sampler_order(np, n: int, seed: int) -> tuple:
+    """(order, perm): the mesh sampler's epoch-0 order of n items, and the
+    permutation through which fit without a mesh, whose loader shuffles on
+    its own, reads the items in that order (loader.py, distributed.py)."""
+    order_s = np.arange(n)
+    np.random.default_rng([seed, 0]).shuffle(order_s)  # the sampler's epoch 0
+    order_l = np.arange(n)
+    np.random.default_rng(seed + 1000003).shuffle(order_l)  # the loader's first epoch
+    perm = np.empty_like(order_s)
+    perm[order_l] = order_s
+    return order_s, perm
+
+
+def recorded_fit(loop, *args, **kw) -> tuple:
+    """loop.fit(*args, **kw) and the loss of each of its steps: the scanned
+    step builders fit calls are wrapped so that every call records its
+    losses. Returns (state, losses)."""
+    losses = []
+    patched = (loop.make_parallel_scanned_train_step, loop.make_scanned_train_step)
+
+    def recording(make):
+        def build(*a, **k):
+            step = make(*a, **k)
+
+            def call(state, batch):
+                state, m, aux = step(state, batch)
+                losses.extend(m["loss"].tolist())
+                return state, m, aux
+            return call
+        return build
+
+    loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = map(recording, patched)
+    try:
+        state, _ = loop.fit(*args, **kw)
+    finally:
+        loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = patched
+    return state, losses
+
+
+def float64_fits(torch, np, mesh, tmp, device="cuda") -> dict:
+    """The data-parallel semantics over a trajectory: fit over the world-1
+    mesh against fit without one, both in float64 (torch's default dtype
+    while they run) through the plain warp (the kernels take fp32), at 64×32
+    (ResNet-18, gray, batch 4, steps_per_call 2), 10 steps from the same
+    seed on the same data order. In float64 the hand-written BatchNorm and
+    cuDNN's, and the two paths' sums, part by rounding that Adam cannot raise
+    to lr-sized steps, so the trajectories stay together where fp32 ones
+    part (float64 on the CPU: 1e-14)."""
+    import dataclasses
+
+    from monodepth2_torch.data import SyntheticDriving
+    from monodepth2_torch.training import TrainConfig
+    from monodepth2_torch.training import loop
+
+    w, h = 64, 32
+    cfg = TrainConfig(target_size=(w, h), batch_size=BATCH, in_channels=1, steps_per_call=2, warp_method="gather",
+                      log_every=0, save_every=0, log_dir=f"{tmp}/f64/logs", save_dir=f"{tmp}/f64/ckpts")
+    driving = SyntheticDriving(n=48, target_size=(w, h))
+    _, perm = sampler_order(np, len(driving), cfg.seed)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        t = time.perf_counter()
+        state, losses = recorded_fit(loop, cfg, driving, mesh=mesh, max_steps=10, verbose=False, device=device)
+        plain_cfg = dataclasses.replace(cfg, log_dir=f"{tmp}/f64p/logs", save_dir=f"{tmp}/f64p/ckpts")
+        plain, plain_losses = recorded_fit(loop, plain_cfg, _Reordered(driving, perm), max_steps=10, verbose=False,
+                                           device=device)
+        s = time.perf_counter() - t
+    finally:
+        torch.set_default_dtype(prev)
+    check(all(p.dtype == torch.float64 for p in state.model.parameters()), "the float64 fit's params are not float64")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    out = dict(config=f"ResNet-18 {w}x{h} gray batch {BATCH}, float64, plain warp, steps_per_call 2", s=round(s, 3),
+               steps=[state.step, plain.step], losses=losses, loss_rel_diff=rel,
+               param_rel_l2=rel_l2(state.model.parameters(), plain.model.parameters()),
+               stats_rel_l2=rel_l2(state.model.buffers(), plain.model.buffers()))
+    check(len(rel) == 10 and state.step == plain.step == 10, f"float64 fits {out}")
+    # measured on the H100: losses 1.7e-14 relative at most, params 1.9e-14
+    # relative L2 (the CPU: 1.4e-14, 2.9e-14); the bound 1e-12 leaves 50× for
+    # the card's run-to-run rounding (atomic adds in the upsample backward),
+    # and a wrong reduction or BatchNorm moves a float64 trajectory by O(lr)
+    # from the first step
+    check(max(rel) <= 1e-12 and out["param_rel_l2"] <= 1e-12, f"float64 fit over the mesh vs without: {out}")
+    return out
+
+
+def grads_vs_float64(torch, state, frames, K, cfg, mesh, device="cuda") -> dict:
+    """Which BatchNorm is the inexact one: from `state` and one batch, the
+    grads of the plain fp32 step (cuDNN's BatchNorm), of the world-1
+    data-parallel fp32 step (the hand-written global-batch BatchNorm,
+    nn/core.py `_global_forward`) and of a float64 plain step, TF32 off, all
+    three through the plain warp (the kernels take fp32 only); each fp32
+    step's relative L2 distance from the float64 grads."""
+    from dataclasses import replace
+
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.parallel import make_parallel_train_step
+    from monodepth2_torch.training import TrainContext, create_train_state, make_train_step
+
+    cfg = replace(cfg, warp_method="gather")
+    grads = {}
+    for key, dtype in (("plain", torch.float32), ("dp", torch.float32), ("float64", torch.float64)):
+        prev = torch.get_default_dtype()
+        torch.set_default_dtype(dtype)
+        try:
+            ctx = TrainContext.create(K, cfg.width, cfg.height, dtype=dtype, device=device)
+            twin = create_train_state(Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels,
+                                                   device=device), cfg)
+            twin.model.load_state_dict(state.model.state_dict())  # cast to dtype
+            step = make_parallel_train_step(ctx, cfg, mesh) if key == "dp" else make_train_step(ctx, cfg)
+            step(twin, frames.to(dtype))
+        finally:
+            torch.set_default_dtype(prev)
+        grads[key] = [p.grad for p in twin.model.parameters()]
+    errs = {f"{k}_vs_float64_rel_l2": rel_l2(grads[k], grads["float64"]) for k in ("plain", "dp")}
+    return dict(errs, dp_over_plain=errs["dp_vs_float64_rel_l2"] / errs["plain_vs_float64_rel_l2"])
+
+
 def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
     """Data parallelism: (a) one rank in this process, on the mesh that
     make_mesh() sets up alone (a world-size-1 NCCL group): fit over it at
@@ -776,7 +918,6 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
     1-process run's (float64 on the CPU: ~1e-11)."""
     import dataclasses
     import os
-    import socket
     import subprocess
 
     import torch.distributed as dist
@@ -821,51 +962,26 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
         cfg = TrainConfig(target_size=(WIDTH, HEIGHT), batch_size=BATCH, in_channels=1, steps_per_call=2,
                           log_every=0, save_every=0, log_dir=f"{tmp}/dp/logs", save_dir=f"{tmp}/dp/ckpts")
         driving = SyntheticDriving(n=48, target_size=(WIDTH, HEIGHT))
-        losses, recording_to = {}, []
-
-        def recording(make):
-            def build(*args, **kw):
-                step, key = make(*args, **kw), recording_to[-1]
-                losses[key] = []
-
-                def call(state, batch):
-                    state, m, aux = step(state, batch)
-                    losses[key] += m["loss"].tolist()
-                    return state, m, aux
-                return call
-            return build
-
-        patched = (loop.make_parallel_scanned_train_step, loop.make_scanned_train_step)
-        loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = map(recording, patched)
-        try:
-            reset(GS)
-            reset_counts()
+        losses, plains = {}, {}
+        reset(GS)
+        reset_counts()
+        synchronize(dev)
+        t = time.perf_counter()
+        with trace(host=False) as prof:
+            state, losses["mesh"] = recorded_fit(loop, cfg, driving, mesh=mesh, max_steps=10, verbose=False,
+                                                 device=device)
             synchronize(dev)
-            t = time.perf_counter()
-            recording_to.append("mesh")
-            with trace(host=False) as prof:
-                state, _ = loop.fit(cfg, driving, mesh=mesh, max_steps=10, verbose=False, device=device)
-                synchronize(dev)
-            mesh_s = time.perf_counter() - t
-            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            mesh_counts, wrapper = dict(COUNTS), counts(GS)
-            order_s = np.arange(len(driving))
-            np.random.default_rng([cfg.seed, 0]).shuffle(order_s)  # the sampler's epoch 0
-            order_l = np.arange(len(driving))
-            np.random.default_rng(cfg.seed + 1000003).shuffle(order_l)  # the loader's first epoch
-            perm = np.empty_like(order_s)
-            perm[order_l] = order_s
-            plains = {}
-            # the plain fit, and as a yardstick of what fp32 rounding alone
-            # does to a trajectory, the plain fit through the plain warp
-            for key, method in (("plain", None), ("plain_gather", "gather")):
-                recording_to.append(key)
-                plain_cfg = dataclasses.replace(cfg, log_dir=f"{tmp}/{key}/logs", save_dir=f"{tmp}/{key}/ckpts",
-                                                warp_method=method)
-                plains[key], _ = loop.fit(plain_cfg, _Reordered(driving, perm), max_steps=10, verbose=False,
-                                          device=device)
-        finally:
-            loop.make_parallel_scanned_train_step, loop.make_scanned_train_step = patched
+        mesh_s = time.perf_counter() - t
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        mesh_counts, wrapper = dict(COUNTS), counts(GS)
+        order_s, perm = sampler_order(np, len(driving), cfg.seed)
+        # the plain fit, and as a yardstick of what fp32 rounding alone does
+        # to a trajectory, the plain fit through the plain warp
+        for key, method in (("plain", None), ("plain_gather", "gather")):
+            plain_cfg = dataclasses.replace(cfg, log_dir=f"{tmp}/{key}/logs", save_dir=f"{tmp}/{key}/ckpts",
+                                            warp_method=method)
+            plains[key], losses[key] = recorded_fit(loop, plain_cfg, _Reordered(driving, perm), max_steps=10,
+                                                    verbose=False, device=device)
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"])]
         yardstick = [abs(a - b) / abs(b) for a, b in zip(losses["plain_gather"], losses["plain"])]
         by_name = kernel_counts(names)
@@ -883,16 +999,18 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
         # hand-written BatchNorm's fp32 rounding (1.7e-7 on the H100); steps
         # 2-3 (eager) within 2e-3 (1.5e-4 measured). From step 4 on, fp32
         # trajectories part (Adam turns rounding in near-zero grads into
-        # lr-sized steps): up to 5.9e-2 by step 10 in the H100 runs, where
+        # lr-sized steps): up to 0.12 by step 10 in the H100 runs, where
         # the plain fit through the plain warp parts from the kernel one by
-        # up to 3.0e-2, and float64 fits on the CPU agree to 1e-14. So those
-        # steps are held only to 0.25, against a run that diverges; the
-        # twins below hold each replayed step sharply
+        # up to 6.1e-2. The 0.25 there is a sanity bound only: the float64
+        # fits below hold the data-parallel semantics over the trajectory,
+        # and the twins below hold each replayed step
         check(rel[0] <= 1e-6 and max(rel[1:3]) <= 2e-3 and max(rel) <= 0.25, f"dp fit losses vs plain fit: {rel}")
         # one capture: 2 sums a BatchNorm forward, 2 in its backward, the
         # grads and the metrics; the warm-up steps issue as many each
         check(mesh_counts["captured"] == (4 * n_bn + 2) * on_card, f"collectives captured {mesh_counts}, n_bn {n_bn}")
         check(by_name == want, f"dp fit launches by kernel name {by_name}, want {want}")
+
+        out["float64_fit"] = float64_fits(torch, np, mesh, tmp, device)
 
         # each replayed data-parallel micro-step against two eager twins from
         # its state: the eager data-parallel step (the capture) and the
@@ -910,6 +1028,8 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
         for i in range(WARMUP_STEPS, 8):
             for twin in twins.values():
                 load_twin(twin, state)
+            # each fp32 BatchNorm's grads against float64 from this state
+            vs64 = grads_vs_float64(torch, state, stack[i], driving.K, cfg, mesh, device)
             reset_counts()
             _, m, _ = scanned(state, stack[i: i + 1])  # the first of these captures
             captured = COUNTS["captured"]
@@ -922,18 +1042,25 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
                    for key in ("exp_avg", "exp_avg_sq")},
                 dp_vs_plain_grad_rel_l2=rel_l2(grads["dp"], grads["plain"]),
                 dp_vs_plain_param_rel_l2=rel_l2(twins["dp"].model.parameters(), twins["plain"].model.parameters()),
-                collectives_captured=captured,
+                collectives_captured=captured, **vs64,
             ))
         for r in rows:
             check(abs(r["loss"] - r["dp_twin_loss"]) <= 1e-4 * abs(r["dp_twin_loss"]) and r["param_rel_l2"] <= 1e-6
                   and r["exp_avg_rel_l2"] <= 1e-4 and r["exp_avg_sq_rel_l2"] <= 1e-4,
                   f"replayed data-parallel step vs its eager twin: {r}")
             # at world size 1 the two differ only by the hand-written
-            # BatchNorm's fp32 rounding against cuDNN's, which the backward's
-            # cancellations raise (up to 7.6e-3 measured on the H100); a wrong
-            # BatchNorm backward moves the grads by O(1)
+            # BatchNorm's fp32 rounding against cuDNN's. Against a float64
+            # step from the same state, each fp32 step's grads are off by
+            # 1.2e-3-7.8e-3 on the H100, neither BatchNorm the worse one in
+            # every state (the fp32 gradient moves that much under rounding
+            # of one BatchNorm's output: experiments/bn_vs_float64.py), and
+            # the two steps 1.0e-3-7.6e-3 apart. So each is held within
+            # 1.6e-2 of float64 and of each other, 2× the larger error
+            # measured (7.75e-3); a wrong BatchNorm backward moves the
+            # grads by O(1)
             check(abs(r["dp_twin_loss"] - r["plain_twin_loss"]) <= 1e-6 * abs(r["plain_twin_loss"])
-                  and r["dp_vs_plain_grad_rel_l2"] <= 5e-2, f"world-1 data-parallel step vs the plain step: {r}")
+                  and r["dp_vs_plain_grad_rel_l2"] <= 1.6e-2 and r["plain_vs_float64_rel_l2"] <= 1.6e-2
+                  and r["dp_vs_float64_rel_l2"] <= 1.6e-2, f"world-1 data-parallel step vs the plain step: {r}")
         check(rows[0]["collectives_captured"] == (4 * n_bn + 2) * on_card, f"captured {rows[0]}")
         out["twins"] = rows
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
@@ -972,9 +1099,7 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
         dist.destroy_process_group()
 
     # (b) 2 ranks on this card over gloo with CUDA tensors, beside 1
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     base = [sys.executable, "-m", "monodepth2_torch.tools.dp_worker", "fit", "--device", device, "--backend", "gloo",
             "--dtype", "float64", "--warp-method", "gather"]
     runs = {"sp": [base + ["--out", f"{tmp}/sp", "--save-reference", f"{tmp}/sp/ref-p{{rank}}.npz"]]}
@@ -1010,6 +1135,208 @@ def dp_phase(torch, np, GS, tmp, device="cuda") -> dict:
     )
     check(out["two_ranks"]["state_sha256_equal"] and same, f"the two ranks' states differ: {out['two_ranks']}")
     check(errs[worst] <= 1e-9 and out["two_ranks"]["steps"] == [4, 4, 4], f"2 ranks vs 1: {out['two_ranks']}")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_all(commands: dict, cwd, env, timeout: float = 600) -> dict:
+    """Run the commands {name: argv} as concurrent processes; returns {name:
+    (returncode, stdout, stderr, seconds)}. Each is killed at `timeout`."""
+    import subprocess
+    import threading
+
+    t, out = time.perf_counter(), {}
+
+    def run(name, proc):
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            stderr += f"\n(killed after {timeout} s)"
+        out[name] = (proc.returncode, stdout, stderr, round(time.perf_counter() - t, 3))
+
+    procs = {name: subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, argv in commands.items()}
+    threads = [threading.Thread(target=run, args=item, daemon=True) for item in procs.items()]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout + 60)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(len(out) == len(commands), f"processes not reaped: {set(commands) - set(out)}")
+    return out
+
+
+def cli_phase(torch, np, tmp, width=WIDTH, height=HEIGHT, device="cuda") -> dict:
+    """The command line (python -m monodepth2_torch.cli) as a user runs it,
+    each subcommand a process in `tmp`, concurrent where one does not need
+    another's output; any failure fails the phase. train on SyntheticDriving
+    (16 scenes, ResNet-18, batch 4, bf16, --config with log_every 4) to step
+    12: "done at step 12", ckpt-12, metrics.jsonl with finite losses, params
+    unlike the seed's; the same command resumed to 16; train through torchrun
+    (one process, --distributed, NCCL on the card) to step 4; --mesh 2 in one
+    process refused with the torchrun line; eval-depth --synthetic --limit 4
+    (finite abs_rel); export --fp32 --platforms <device> (meta: the sidecar's
+    width, height, channels) and export --platforms tpu,cpu refused; serve
+    on a free port with --no-warmup, one POST held within 1e-6 of
+    serving.load_inference on the same input, TF32 off in both processes
+    (NVIDIA_TF32_OVERRIDE=0 for the server), then terminated; eval-image on
+    4 PNGs (4 disparity PNGs); simple-depth --iters 20 (the loss falls);
+    profile --steps 2 (trace.json naming K1 and K2, launched once a step)."""
+    import io
+    import os
+    import subprocess
+    import urllib.request
+
+    from PIL import Image
+
+    from monodepth2_torch.eval import load_model, sidecar_config
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.serving import load_inference, read_meta
+    from monodepth2_torch.tools.profile_breakdown import kernel_counts
+
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(tmp)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cli = [sys.executable, "-m", "monodepth2_torch.cli"]
+    (tmp / "cli.json").write_text(json.dumps({"log_every": 4, "save_every": 0}))
+    size = ["--width", str(width), "--height", str(height), "--device", device]
+    train = [*cli, "train", "--data", "driving", "--synthetic-n", "16", *size, "--batch-size", str(BATCH), "--bf16",
+             "--config", "cli.json", "--save-dir", "ck", "--log-dir", "lg"]
+    ckpt = "ck/ckpt-12"
+    out, seconds = {}, {}
+
+    def ran(commands, refused=()):
+        results = run_all(commands, tmp, env)
+        for name, (rc, stdout, stderr, s) in results.items():
+            seconds[name] = s
+            ok = name not in refused
+            check((rc == 0) == ok, f"cli {name} exited {rc} (want {'0' if ok else 'nonzero'}): {stderr[-3000:]}")
+        return results
+
+    # first: train to 12, torchrun, and the subcommands that need no checkpoint
+    port = free_port()
+    first = ran({
+        "train": [*train, "--max-steps", "12", "--no-resume"],
+        "torchrun_train": [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1", "--nnodes", "1",
+                           "--master-addr", "127.0.0.1", "--master-port", str(port), "-m", "monodepth2_torch.cli",
+                           "train", "--distributed", "--data", "driving", "--synthetic-n", "16", *size, "--batch-size",
+                           str(BATCH), "--max-steps", "4", "--no-resume", "--save-dir", "ck_dist", "--log-dir",
+                           "lg_dist"],
+        "simple_depth": [*cli, "simple-depth", "--iters", "20", "--out", "sd", "--device", device],
+        "profile": [*cli, "profile", "--steps", "2", "--out", "prof", *size],
+        "mesh2": [*train, "--max-steps", "4", "--mesh", "2", "--save-dir", "ck_mesh"],
+    }, refused={"mesh2"})
+    check("done at step 12" in first["train"][1], f"train: {first['train'][1][-2000:]}")
+    check((tmp / f"{ckpt}.npz").exists() and (tmp / f"{ckpt}.json").exists(), "train wrote no ckpt-12")
+    logged = [json.loads(line) for line in (tmp / "lg" / "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in logged] == [4, 8, 12] and all(np.isfinite(r["loss"]) for r in logged),
+          f"metrics.jsonl {logged}")
+    trained = load_model(sidecar_config(str(tmp / ckpt)), str(tmp / ckpt), device=device)
+    seed = Model.create(depth=18, in_channels=1, device=device)
+    moved = rel_l2(trained.parameters(), seed.parameters())
+    check(moved > 1e-6, f"ckpt-12's params are the seed's: relative L2 {moved}")
+    check("done at step 4" in first["torchrun_train"][1] and (tmp / "ck_dist" / "ckpt-4.npz").exists(),
+          f"torchrun train: {first['torchrun_train'][1][-2000:]} {first['torchrun_train'][2][-2000:]}")
+    check("torchrun --nproc-per-node 2 -m monodepth2_torch.cli train" in first["mesh2"][2]
+          and not (tmp / "ck_mesh").exists(), f"--mesh 2 in one process: {first['mesh2'][2][-2000:]}")
+    iters = [(int(l.split()[1][:-1]), float(l.split()[3])) for l in first["simple_depth"][1].splitlines()
+             if l.startswith("iter ")]
+    check([i for i, _ in iters] == [1, 5, 10, 15, 20] and iters[-1][1] < iters[0][1], f"simple-depth losses {iters}")
+    check(len(list((tmp / "sd").glob("d-*.png"))) == 5, "simple-depth PNGs")
+    trace = json.loads((tmp / "prof" / "trace.json").read_text())
+    names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    profiled = kernel_counts(names)
+    if device == "cuda":
+        want = {"grid_sample_fwd_kernel": 2, "grid_sample_bwd_uv_kernel": 2, "grid_sample_bwd_img_kernel": 0}
+        check(profiled == want, f"profile's trace: launches by kernel name {profiled}, want {want}")
+    out.update(train=dict(metrics=logged, params_moved_rel_l2=moved), simple_depth=iters, profile=profiled)
+
+    # then: what reads ckpt-12 (the resume writes ckpt-16 beside it)
+    frames, _ = held_out(np, 4)
+    (tmp / "imgs").mkdir()
+    for i, f in enumerate(frames):
+        img = Image.fromarray((f[..., 0] * 255).round().astype(np.uint8), "L")
+        img.resize((width, height)).save(tmp / "imgs" / f"{i:06d}.png")
+    second = ran({
+        "resume": [*train, "--max-steps", "16"],
+        "eval_depth": [*cli, "eval-depth", "--checkpoint", ckpt, "--synthetic", "--limit", "4", "--device", device],
+        "export": [*cli, "export", "--checkpoint", ckpt, "--fp32", "--platforms", device, "--out", "art.pt2",
+                   "--device", device],
+        "eval_image": [*cli, "eval-image", "--checkpoint", ckpt, "--images", "imgs", "--out", "disp",
+                       "--device", device],
+        "export_list": [*cli, "export", "--checkpoint", ckpt, "--platforms", "tpu,cpu", "--out", "no.pt2",
+                        "--device", device],
+    }, refused={"export_list"})
+    check("at step 12" in second["resume"][1] and "done at step 16" in second["resume"][1],
+          f"resume: {second['resume'][1][-2000:]}")
+    metrics = json.loads(second["eval_depth"][1][second["eval_depth"][1].index("{"):])
+    check(np.isfinite(metrics["abs_rel"]), f"eval-depth {metrics}")
+    meta = read_meta(str(tmp / "art.pt2"))
+    check(meta["input_shape"] == [None, height, width, 1] and meta["platforms"] == [device]
+          and meta["compute_dtype"] == "float32", f"exported meta {meta}")
+    check("runs only on the device type" in second["export_list"][2] and not (tmp / "no.pt2").exists(),
+          f"export --platforms tpu,cpu: {second['export_list'][2][-2000:]}")
+    pngs = sorted(p.name for p in (tmp / "disp").glob("*.png"))
+    check(pngs == [f"d-{i}.png" for i in range(4)], f"eval-image wrote {pngs}")
+    out.update(eval_depth=metrics, export_meta=meta)
+
+    # serve: one request against the artifact in this process, TF32 off
+    port = free_port()
+    t = time.perf_counter()
+    server = subprocess.Popen([*cli, "serve", "--artifact", "art.pt2", "--port", str(port), "--no-warmup",
+                               "--device", device], cwd=tmp, env=dict(env, NVIDIA_TF32_OVERRIDE="0"),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        while True:
+            if server.poll() is not None:
+                raise RuntimeError(f"serve exited {server.returncode}: {server.stdout.read()[-3000:]}")
+            check(time.perf_counter() - t < 300, "serve did not answer /healthz in 300 s")
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.5)
+        x = np.random.default_rng(6).uniform(size=(1, height, width, 1)).astype(np.float32)
+        req = urllib.request.Request(base + "/v1/depth", data=x.tobytes(), method="POST", headers={
+            "Content-Type": "application/octet-stream", "X-Shape": f"1,{height},{width},1"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = np.load(io.BytesIO(r.read()))
+            got = {k: got[k] for k in got.files}
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+    seconds["serve"] = round(time.perf_counter() - t, 3)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = {k: v.cpu().numpy() for k, v in load_inference(str(tmp / "art.pt2"), device=device)(x).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    served = {k: float(np.abs(got[k] - want[k]).max()) for k in ("disparity", "depth")}
+    check(max(served.values()) <= 1e-6, f"serve's reply vs the artifact: {served}")
+    refused = {"mesh2": first["mesh2"][2], "export_list": second["export_list"][2]}
+    out.update(serve_vs_artifact_max_abs=served, refused={k: v.strip().splitlines()[-1] for k, v in refused.items()},
+               seconds=seconds, wall_s=round(time.perf_counter() - t0, 3))
     return out
 
 
@@ -1321,6 +1648,11 @@ def main() -> int:
         dp = dp_phase(torch, np, GS, work)
     emit("dp", wall_s=round(time.perf_counter() - t, 3), **dp, power_limit=smi)
 
+    # cli: the command line as a user runs it, each subcommand a process
+    with tempfile.TemporaryDirectory() as work:
+        cli = cli_phase(torch, np, work)
+    emit("cli", **cli, power_limit=smi)
+
     # ---- times at the main-path shape (near-identity uv; the image VJP also
     # on the warp bench's smooth warp and on scattered uv, whose clamped
     # points pile onto border pixels), C = 1 and C = 3
@@ -1425,6 +1757,8 @@ def main() -> int:
             launches_fit_by_name=fit_launches[k.name], launches_per_train_step=slice_launches[k.name] // 3,
             launches_in_10_replays=graph["replayed_kernels_by_name"][f"{k.name}_kernel"],
             launches_serving=serving_launches[k.name],
+            # the cli phase's `profile --steps 2`, counted by name in its trace
+            launches_cli_profile=cli["profile"][f"{k.name}_kernel"],
             max_abs_err=err, **rows[k.name], C3=rows_c3[k.name],
         ))
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)

@@ -5,7 +5,7 @@ monodepth2_tpu/simple_depth.py (reference: src/simple_depth.jl).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,11 +27,14 @@ def fit_simple_depth(
     init_disparity: float = 0.5,
     init_rvec: Sequence[float] = (0.0, 0.0, 0.01),
     log_every: int = 5,
+    callback: Optional[Callable] = None,
     device: str | torch.device = "cuda",
 ):
     """frames (1,L,H,W,C) float (numpy or tensor); K (3,3). Returns a dict
     with the fitted disparity (1,H,W,1), poses [(rvec, tvec)], the loss
-    history [(iter, loss)] and the last warped sources.
+    history [(iter, loss)] and the last warped sources. `callback(it,
+    params, loss, warped)`, where given, is called at each logged iteration
+    with params {"disp", "rvec", "tvec"} (the tensors being fitted).
 
     The reference's initialization: disparity 0.5, rvec (0,0,0.01), Adam
     3e-4, 500 iterations (src/simple_depth.jl:8-22).
@@ -65,6 +68,9 @@ def fit_simple_depth(
         optimizer.step()
         if it % log_every == 0 or it == 1:
             history.append((it, loss.item()))
+            if callback is not None:
+                callback(it, {"disp": disp.detach(), "rvec": rvec.detach(), "tvec": tvec.detach()},
+                         history[-1][1], warped)
 
     return {
         "disparity": disp.detach(),

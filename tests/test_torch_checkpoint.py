@@ -197,3 +197,36 @@ def test_latest_checkpoint(tmp_path):
 def test_no_temporary_file_left(tmp_path):
     save_checkpoint(str(tmp_path / "sub" / "ckpt-0"), _state())
     assert sorted(os.listdir(tmp_path / "sub")) == ["ckpt-0.json", "ckpt-0.npz"]
+
+
+def test_resume_under_a_schedule_the_checkpoint_lacked(tmp_path, capsys):
+    """The case tools/migrate_checkpoint.py exists for in the JAX package: a
+    run started without lr_warmup_steps/lr_decay_steps resumes with them.
+    The port's checkpoint is keyed by name (its fingerprint covers the
+    model's and Adam's arrays, not the schedule) and the schedule is
+    computed from the train step, so it loads as it is: the step, Adam's
+    moments and counts come back, the steps after the resume take the
+    schedule's lr at their step, and fit resumes under the new config."""
+    from dataclasses import replace
+
+    from monodepth2_torch.data import SyntheticTriplets
+    from monodepth2_torch.training.loop import fit
+    from monodepth2_torch.training.state import lr_at
+
+    plain = TrainConfig(target_size=(W, H), batch_size=N, log_every=0, save_every=0,
+                        log_dir=str(tmp_path / "logs"), save_dir=str(tmp_path / "ckpts"))
+    sched = replace(plain, lr_warmup_steps=4, lr_decay_steps=3, lr_decay_factor=0.5)
+    ds = SyntheticTriplets(n=4, target_size=(W, H))
+    state, _ = fit(plain, ds, max_steps=2, verbose=False, device="cpu")
+    saved = _snapshot(state)
+    back = load_checkpoint(latest_checkpoint(plain.save_dir), _state(sched))
+    _assert_same(_snapshot(back), saved)
+    assert back.step == 2 and all(float(st["step"]) == 2 for st in back.optimizer.state.values())
+    step = make_train_step(TrainContext.create(ds.K, W, H, device="cpu"), sched)
+    for want_step in (2, 3):  # warmup at 2/4; warmup 3/4 and the decay at 3
+        back, m, _ = step(back, _frames(want_step))
+        assert float(m["lr"]) == pytest.approx(lr_at(sched, want_step), rel=1e-6)
+        assert back.optimizer.param_groups[0]["lr"].item() == pytest.approx(lr_at(sched, want_step), rel=1e-6)
+    capsys.readouterr()
+    resumed, _ = fit(sched, ds, max_steps=4, verbose=True, device="cpu")
+    assert resumed.step == 4 and "ckpt-2 at step 2" in capsys.readouterr().out

@@ -58,6 +58,9 @@ def test_port_imports_without_jax():
                     "monodepth2_torch.data.native", "monodepth2_torch.tools.loader_bench",
                     "monodepth2_torch.tools.batch_scaling_bench", "monodepth2_torch.tools.dp_worker"}}
         assert parallel <= set(names), parallel - set(names)
+        command_line = {{"monodepth2_torch.cli", "monodepth2_torch.tools.make_demo",
+                        "monodepth2_torch.tools.per_item_k_experiment"}}
+        assert command_line <= set(names), command_line - set(names)
         # importing the native binding builds nothing; a process group is set
         # up only when asked for
         from monodepth2_torch.data import native

@@ -530,3 +530,64 @@ def test_batch_scaling_bench_on_cpu(capsys):
         assert r["img_per_s"] == pytest.approx(r["batch"] / (r["ms_per_step"] / 1e3))
         assert r["steps_per_call"] == 2 and r["size"] == [64, 32]
     assert out["config"] == "configs/kitti_ssl.json" and out["device"] == "cpu"
+
+
+def _tiny_checkpoint(path):
+    """A port checkpoint at 64×32, gray, with its config in the sidecar."""
+    from monodepth2_torch.models import Model
+    from monodepth2_torch.training import TrainConfig, create_train_state, save_checkpoint
+
+    cfg = TrainConfig(target_size=(64, 32), in_channels=1, min_depth=1.0, max_depth=80.0)
+    save_checkpoint(path, create_train_state(Model.create(in_channels=1, device="cpu"), cfg),
+                    metadata={"config": cfg.to_json()})
+
+
+def test_make_demo_on_cpu(tmp_path, monkeypatch):
+    """The strip of input-over-disparity panels and the animation; without
+    imageio the animation is a GIF."""
+    import sys
+
+    from PIL import Image
+
+    from monodepth2_torch.tools import make_demo
+
+    _tiny_checkpoint(str(tmp_path / "ckpt-0"))
+    monkeypatch.setitem(sys.modules, "imageio", None)  # any import of it now raises ImportError
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    out = make_demo.main(["--checkpoint", str(tmp_path / "ckpt-0"), "--out", str(tmp_path / "demo"), "--frames", "4",
+                          "--width", "64", "--height", "32", "--device", "cpu"])
+    assert out == {"strip": str(tmp_path / "demo" / "demo-strip.png"), "video": str(tmp_path / "demo" / "demo.gif")}
+    assert Image.open(out["strip"]).size == (4 * 64, 2 * 32)
+    gif = Image.open(out["video"])
+    assert gif.n_frames == 4 and gif.size == (64, 2 * 32)
+
+
+def test_per_item_k_experiment_on_cpu(tmp_path, capsys):
+    """Both conditions train 2 steps and are scored on each calibration's
+    held-out scenes; results.json holds what main returns."""
+    from monodepth2_torch.tools import per_item_k_experiment
+
+    out = per_item_k_experiment.main(["--steps", "2", "--n-scenes", "2", "--n-val", "1", "--width", "64",
+                                      "--height", "32", "--batch-size", "2", "--steps-per-call", "2",
+                                      "--out", str(tmp_path), "--device", "cpu"])
+    for cond in ("first_child_K", "per_item_K"):
+        assert (tmp_path / cond / "ckpts" / "ckpt-2.npz").exists()
+        for tag in ("A", "B"):
+            _assert_finite(out[cond]["val"][tag], ("abs_rel", "a1", "rmse"))
+    assert out["summary"]["order"] == ["first_child_K", "per_item_K"]
+    with open(tmp_path / "results.json") as f:
+        saved = json.load(f)
+    assert saved["config"] == out["config"] and saved["per_item_K"] == out["per_item_K"]
+    assert '"summary"' in capsys.readouterr().out
+
+
+def test_demo_and_per_item_k_tools_refuse_missing_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from monodepth2_torch.tools import make_demo, per_item_k_experiment
+
+    for call in (lambda: make_demo.main(["--checkpoint", str(tmp_path / "none"), "--out", str(tmp_path / "d")]),
+                 lambda: per_item_k_experiment.main(["--out", str(tmp_path / "p")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert list(tmp_path.iterdir()) == []
