@@ -1,0 +1,7 @@
+"""Share of the traced segment in which no device activity ran."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0 or r.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
