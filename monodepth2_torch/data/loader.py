@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiler import count, span
 from .dchain import resolves_item_K
 
 
@@ -159,19 +160,21 @@ class DataLoader:
                     for idx_batch in self._index_batches():
                         if stop_evt.is_set():
                             return
-                        items = list(pool.map(load_one, idx_batch))
-                        batch = np.stack(items, axis=0)
-                        if K_of is not None:
-                            Ks = np.stack(
-                                [
-                                    np.asarray(K_of(int(i)), np.float32)
-                                    for i in idx_batch
-                                ],
-                                axis=0,
-                            )
-                            batch = {"frames": batch, "K": Ks}
+                        with span("loader.batch"):
+                            items = list(pool.map(load_one, idx_batch))
+                            batch = np.stack(items, axis=0)
+                            if K_of is not None:
+                                Ks = np.stack(
+                                    [
+                                        np.asarray(K_of(int(i)), np.float32)
+                                        for i in idx_batch
+                                    ],
+                                    axis=0,
+                                )
+                                batch = {"frames": batch, "K": Ks}
                         if not put_or_stop(batch):
                             return
+                        count("loader.batches")
                     put_or_stop(None)
                 except BaseException as e:  # surface worker errors to consumer
                     put_or_stop(e)
@@ -180,7 +183,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.get"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):
@@ -218,6 +222,11 @@ def _map(fn, batch):
     return fn(batch)
 
 
+def _leaves(batch) -> list:
+    """The leaves of an array-or-{"frames","K"} batch."""
+    return list(batch.values()) if isinstance(batch, dict) else [batch]
+
+
 def device_prefetch(iterator, size: int = 2, device="cuda", dtype=np.float32):
     """Host batches (arrays, or {"frames","K"} dicts of them) as tensors on
     `device`, `size` batches ahead of use.
@@ -238,10 +247,11 @@ def device_prefetch(iterator, size: int = 2, device="cuda", dtype=np.float32):
     copy_stream = torch.cuda.Stream(device)
 
     def put(batch):
+        with span("feed.pin"):
+            pinned = _map(lambda x: torch.from_numpy(as_array(x)).pin_memory(), batch)
+        count("feed.bytes_pinned", sum(t.nbytes for t in _leaves(pinned)))
         with torch.cuda.stream(copy_stream):
-            out = _map(
-                lambda x: torch.from_numpy(as_array(x)).pin_memory().to(device, non_blocking=True), batch
-            )
+            out = _map(lambda t: t.to(device, non_blocking=True), pinned)
             return out, copy_stream.record_event()
 
     for out, copied in placement_prefetch(iterator, put, size=size):

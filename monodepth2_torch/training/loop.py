@@ -28,7 +28,7 @@ from ..data import DataLoader, device_prefetch
 from ..device import resolve_device
 from ..models import Model
 from ..parallel import Mesh, PerHostSampler, make_parallel_scanned_train_step, make_parallel_train_step
-from ..utils.profiler import StepTimer
+from ..utils.profiler import span
 from ..utils.viz import save_disparity, save_warped
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .config import TrainConfig, TrainContext
@@ -49,10 +49,14 @@ def _group_batches(iterator, k: int):
     for b in iterator:
         buf.append({k_: np.asarray(v) for k_, v in b.items()} if isinstance(b, dict) else np.asarray(b))
         if len(buf) == k:
-            yield stack(buf)
+            with span("feed.stack"):
+                group = stack(buf)
+            yield group
             buf = []
     if buf:
-        yield stack(buf)
+        with span("feed.stack"):
+            group = stack(buf)
+        yield group
 
 
 def _batch_frames(batch):
@@ -204,7 +208,6 @@ def fit(
         prev_anomaly = torch.is_anomaly_enabled()
         torch.autograd.set_detect_anomaly(True)
     try:
-        timer = StepTimer()
         # epoch-position resume: the shuffle is a pure function of (seed,
         # epoch) and step counts batches, so (epoch, batch cursor) follows
         # from the step alone
@@ -214,6 +217,10 @@ def fit(
             loader.epoch = start_epoch
             loader.skip_next = resumed_step % steps_per_epoch
         host_step = resumed_step
+        # img_per_sec: the images of the steps between two log points over
+        # the host time between the loss reads there, each of which waits for
+        # the card; the first interval starts here
+        synced_at, synced_step = time.perf_counter(), resumed_step
         # a fit() resumed at or past max_steps trains nothing
         done = max_steps is not None and resumed_step >= max_steps
         for epoch in range(start_epoch, cfg.epochs):
@@ -238,7 +245,6 @@ def fit(
                 )
             for batch in batches:
                 state, metrics, aux = step(state, batch)
-                timer.tick()
                 # micro-steps this call (tail groups may be short)
                 k_done = int(_batch_frames(batch).shape[0]) if spc > 1 else 1
                 host_step += k_done
@@ -258,7 +264,9 @@ def fit(
                         mean_disp = float(
                             metrics["mean_disparity"][-1] if spc > 1 else metrics["mean_disparity"]
                         )
-                    ips = timer.images_per_sec(cfg.batch_size * k_done)
+                    now = time.perf_counter()
+                    ips = cfg.batch_size * (global_step - synced_step) / (now - synced_at)
+                    synced_at, synced_step = now, global_step
                     if is_writer:
                         with open(os.path.join(cfg.log_dir, "metrics.jsonl"), "a") as mf:
                             mf.write(json.dumps({

@@ -27,6 +27,7 @@ import torch
 from torch import Tensor
 
 from ..ops.losses import automasking_loss
+from ..utils.profiler import count, span
 from .config import TrainConfig, TrainContext
 from .loss import train_loss
 
@@ -259,6 +260,7 @@ class _CapturedStep:
         with torch.cuda.graph(graph):
             self.row, self.aux = _update(self.ctx, self.cfg, state, self.step, self.frames, self.Ks, self.dp)
         self.graph = graph
+        count("step.captures")
 
     def __call__(self, state: TrainState, frames: Tensor, Ks):
         if self.state is None:
@@ -267,7 +269,7 @@ class _CapturedStep:
             raise ValueError("a scanned train step on the card is bound to the state of its first call")
         k = frames.shape[0]
         rows = torch.empty((k, len(METRICS)), dtype=frames.dtype, device=frames.device)
-        aux, replayed = None, False
+        aux, replayed = None, 0
         for i in range(k):
             Ki = None if Ks is None else Ks[i]
             if self.graph is None and self.warm < WARMUP_STEPS:
@@ -282,9 +284,10 @@ class _CapturedStep:
                     self.Ks.copy_(Ki)
                 self.graph.replay()
                 rows[i].copy_(self.row)
-                replayed = True
+                replayed += 1
                 aux = None
             state.step += 1
+        count("step.replays", replayed)
         if aux is None:
             # the graph's outputs are overwritten by the next replay
             aux = _tree_map(Tensor.clone, self.aux)
@@ -311,12 +314,13 @@ def make_scanned_train_step(ctx: TrainContext, cfg: TrainConfig, dp=None) -> Cal
 
     def scanned(state: TrainState, batch):
         frames, Ks = _split(batch)
-        if frames.is_cuda and not cfg.debug_nans and (dp is None or dp.capturable):
-            return captured(state, frames, Ks)
-        outs = []
-        for i in range(frames.shape[0]):
-            outs.append(step(state, frames[i] if Ks is None else {"frames": frames[i], "K": Ks[i]}))
-        metrics = {key: torch.stack([m[key] for _, m, _ in outs]) for key in METRICS}
-        return state, metrics, outs[-1][2]
+        with span("step.call", frames.device):
+            if frames.is_cuda and not cfg.debug_nans and (dp is None or dp.capturable):
+                return captured(state, frames, Ks)
+            outs = []
+            for i in range(frames.shape[0]):
+                outs.append(step(state, frames[i] if Ks is None else {"frames": frames[i], "K": Ks[i]}))
+            metrics = {key: torch.stack([m[key] for _, m, _ in outs]) for key in METRICS}
+            return state, metrics, outs[-1][2]
 
     return scanned

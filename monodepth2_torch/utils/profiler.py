@@ -1,22 +1,33 @@
-"""Step timing / throughput and the torch.profiler trace hook, port of
-monodepth2_tpu/utils/profiler.py.
+"""Step timing / throughput, the torch.profiler trace hook and the
+program's own spans and counters, port of monodepth2_tpu/utils/profiler.py.
 
 `StepTimer` is framework-free and copied as it is. `trace` is the
 torch.profiler counterpart of the jax.profiler context. `jit_trace_count`
 (the retrace tripwire of a jitted step) has nothing to port: PyTorch runs
 eagerly and compiles no traces.
+
+The recorder (`span`, `count`, `snapshot`, `reset`, switched by `record`)
+keeps the spans and counters that the training feed and the scanned step
+mark (PERF.md, "Tracing"). It records while it is switched on and while a
+torch.profiler session records in this process; otherwise `span` returns
+one shared null context after a flag check, and `count` returns at once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
+import os
 import statistics
+import threading
 import time
-from collections import deque
+from collections import defaultdict, deque
 from pathlib import Path
 from typing import Callable, Optional, Union
 
 import torch
+import torch.autograd.profiler as _torch_profiler
 
 L2_FLUSH_BYTES = 128 * 2**20  # well over the H100's 50 MB L2
 
@@ -152,21 +163,188 @@ def wall_ms(fn: Callable[[], object], device: torch.device, iters: int, warmup: 
     return out
 
 
+class Recorder:
+    """Spans and counters in memory. A span is (id, parent id or 0, name,
+    thread name, start ns, end ns) on `time.perf_counter_ns()`; its parent
+    is the span open on the same thread when it began (a thread-local
+    stack, so a span must not stay open across a `yield`). `events` holds
+    (name, start, end) CUDA event pairs of spans that time the card."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: list = []
+        self.counters: dict = defaultdict(int)
+        self.events: list = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+
+    def stack(self) -> list:
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.stack, local.thread = [], threading.current_thread().name
+        return local.stack
+
+
+_RECORDER = Recorder()
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "device", "id", "parent", "stack", "function", "start", "t0")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        stack = self.stack = _RECORDER.stack()
+        self.parent = stack[-1] if stack else 0
+        self.id = next(_RECORDER._ids)
+        stack.append(self.id)
+        # each clock is read before the call that may wait for the GIL on
+        # return (record_function's enter and exit), so that the two start
+        # and the two end stamps lie microseconds apart
+        self.t0 = time.perf_counter_ns()
+        self.function = torch.profiler.record_function(self.name)
+        self.function.__enter__()
+        self.start = None
+        if self.device is not None and self.device.type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _RECORDER.events.append((self.name, self.start, end))
+        self.function.__exit__(*exc)
+        self.stack.pop()
+        _RECORDER.spans.append((self.id, self.parent, self.name, _RECORDER._local.thread, self.t0, t1))
+        return False
+
+
+def record(on: bool) -> None:
+    """Switch the recorder on or off (off by default)."""
+    _RECORDER.on = bool(on)
+
+
+def recording() -> bool:
+    """Whether spans and counters are kept now: the recorder is switched on,
+    or a torch.profiler session records."""
+    return _RECORDER.on or _torch_profiler._is_profiler_enabled
+
+
+def span(name: str, device: Optional[torch.device] = None):
+    """A context that records span `name` while `recording()`, and then
+    also enters `torch.profiler.record_function(name)`, so that a profile
+    of the thread that started the profiler holds it on the device trace's
+    clock. With a CUDA `device`, CUDA events on its current stream at the
+    start and end time the card's work between them (`snapshot`'s
+    `device`). Off, it returns one shared null context."""
+    if not (_RECORDER.on or _torch_profiler._is_profiler_enabled):
+        return _NULL
+    return _Span(name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name` while `recording()`."""
+    if not (_RECORDER.on or _torch_profiler._is_profiler_enabled):
+        return
+    with _RECORDER._lock:
+        _RECORDER.counters[name] += n
+
+
+def reset() -> None:
+    """Forget every span, counter and event recorded so far."""
+    with _RECORDER._lock:
+        _RECORDER.spans, _RECORDER.events = [], []
+        _RECORDER.counters = defaultdict(int)
+
+
+def snapshot() -> dict:
+    """What the recorder holds, by name: `spans` {name: {count, total_s,
+    self_s}} (self time: the duration less what the span's children
+    cover), `counters` {name: value}, and `device` {name: {count,
+    total_s}}, the card's time between each CUDA event pair, read after
+    the end event has completed."""
+    spans, events = list(_RECORDER.spans), list(_RECORDER.events)
+    children = defaultdict(int)
+    for _, parent, _, _, t0, t1 in spans:
+        if parent:
+            children[parent] += t1 - t0
+    by_name = {}
+    for sid, _, name, _, t0, t1 in spans:
+        s = by_name.setdefault(name, {"count": 0, "total_s": 0.0, "self_s": 0.0})
+        s["count"] += 1
+        s["total_s"] += (t1 - t0) * 1e-9
+        s["self_s"] += (t1 - t0 - children.get(sid, 0)) * 1e-9
+    device = {}
+    for name, start, end in events:
+        end.synchronize()
+        d = device.setdefault(name, {"count": 0, "total_s": 0.0})
+        d["count"] += 1
+        d["total_s"] += start.elapsed_time(end) * 1e-3
+    with _RECORDER._lock:
+        counters = dict(_RECORDER.counters)
+    return {"spans": by_name, "counters": counters, "device": device}
+
+
+def _clock_offset_ns() -> int:
+    """Unix time less `perf_counter_ns()`, now: the profiler stamps its
+    events on the Unix clock, in µs after `baseTimeNanoseconds` in its
+    Chrome trace."""
+    p0 = time.perf_counter_ns()
+    wall = time.time_ns()
+    p1 = time.perf_counter_ns()
+    return wall - (p0 + p1) // 2
+
+
+def _add_spans(path: Path, spans: list, offset_ns: int) -> None:
+    """Append `spans` to the Chrome trace at `path`, on its timeline, as
+    complete events of category `program_span` under a process of their
+    own, one thread track for each thread that recorded them."""
+    with open(path) as f:
+        data = json.load(f)
+    base = int(data.get("baseTimeNanoseconds", 0))
+    pid = f"monodepth2_torch spans ({os.getpid()})"
+    names = {sid: name for sid, _, name, _, _, _ in spans}
+    data["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": name, "pid": pid, "tid": thread,
+         "ts": (t0 + offset_ns - base) / 1e3, "dur": (t1 - t0) / 1e3,
+         "args": {"parent": names.get(parent)} if parent else {}}
+        for _, parent, name, thread, t0, t1 in spans)
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None, host: bool = True):
     """Profile the card, when there is one, and with `host` the host's
     operators and their input shapes, and yield the `torch.profiler.profile`
     object (its events, `key_averages()`). Recording host operators costs host time on every
     operator, enough to leave an eager step's card idle longer; a measure of
-    the card's idle share turns `host` off. On exit, if `log_dir` is given,
-    write the Chrome trace (Perfetto, chrome://tracing) to log_dir/trace.json."""
+    the card's idle share turns `host` off. The recorder is switched on
+    inside the block. On exit, if `log_dir` is given, write the Chrome trace
+    (Perfetto, chrome://tracing) to log_dir/trace.json, with the spans that
+    every thread recorded in the block (the loader's producer thread too,
+    which the profiler does not record) on the profiler's timeline."""
     activities = [torch.profiler.ProfilerActivity.CPU] if host else []
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     if not activities:
         raise ValueError("trace(host=False) without a CUDA device has nothing to record")
+    was_on = _RECORDER.on
     with torch.profiler.profile(activities=activities, record_shapes=host) as prof:
-        yield prof
+        offset_ns, start_ns = _clock_offset_ns(), time.perf_counter_ns()
+        record(True)
+        try:
+            yield prof
+        finally:
+            record(was_on)
     if log_dir is not None:
         Path(log_dir).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+        path = Path(log_dir) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        _add_spans(path, [s for s in _RECORDER.spans if s[4] >= start_ns], offset_ns)
