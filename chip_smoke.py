@@ -11,9 +11,10 @@ version on the card. Phases, each printing one flushed JSON line with its
 wall time:
 
   env      the card (nvidia-smi name and power limit), torch and CUDA versions
-  build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu for sm_90a, and
-           what ptxas says of each kernel: registers, shared memory, spills;
-           beside it the dynamic shared memory of K3's blocks at 128×416
+  build    nvcc of monodepth2_torch/ops/cuda/grid_sample.cu and project.cu
+           for sm_90a, and what ptxas says of each kernel: registers, shared
+           memory, spills; beside it the dynamic shared memory of K3's
+           blocks at 128×416
   kernels  the three kernels against their plain versions at the main-path
            shape (32 images of 128×416) for C = 1 and 3, on scattered and
            near-identity uv with exact-border and out-of-range points, and
@@ -30,11 +31,21 @@ wall time:
            1e-5·Σ_p|g·w| + 1e-6 (atomics add in no fixed order), and d_img
            conserving Σ_p g over each image and channel (float64 sums,
            within that tolerance summed over the pixels)
+  project  the projection's kernels (project_fwd; project_bwd, whose launch
+           enqueues project_bwd_kernel and project_bwd_reduce_kernel)
+           against their plain twins at the main path's shape for one
+           source (16 items of 128×416 points, tools.project_bench's
+           inputs: a point behind the camera and one at c_z = 1e-2 in every
+           item), K shared and per item: uv within 1e-6 abs, d_points
+           within 1e-5 rel + 1e-6 abs, dR and dt within 1e-5 relative
+           Frobenius (tests/test_torch_cuda.py's), a second backward the
+           same bits, one launch of each wrapper a call
   autograd grid_sample with image and uv requiring grad, through K1, K2, K3,
            against the plain op; each kernel launched exactly once
   slice    3 fp32 train steps (TF32 off) through the kernels, the launch
            counters reset just before and read just after: 3 × K1, 3 × K2,
-           0 × K3 (source frames are data). Beside each, a step from the same
+           0 × K3 (source frames are data), and the projection's wrappers 3 ×
+           2 (once a source a step). Beside each, a step from the same
            state through the plain grid sample: losses agree to 1e-4 rel, all
            parameter grads to 1e-2 relative L2
   graph    the scanned train step (training.make_scanned_train_step) in
@@ -50,7 +61,8 @@ wall time:
            ~5e-5 or more), Adam's moments within 1e-4 and its step counts
            equal. Then one call of 10 replays in a profiler window: by
            kernel name, K1 and K2 once a step and K3 never (a replay runs no
-           Python, so the wrappers' counters cannot see it)
+           Python, so the wrappers' counters cannot see it), and each of the
+           projection's three kernels once a source a step
   reference  the simple_depth fit through the kernels against the committed
            golden trajectories tests/golden/simple_depth_golden.npz (96×32,
            500 iterations) and simple_depth_golden_416x128.npz (the
@@ -66,7 +78,8 @@ wall time:
            counters reset just before and read just after: the wrappers run
            (eager warm-up steps and the capture) for K1 and K2, not K3, and
            by kernel name K1 and K2 are launched once a step, replays
-           included, and K3 never. Checks the checkpoint files, the
+           included, K3 never, and the projection's three kernels once a
+           source a step. Checks the checkpoint files, the
            metrics.jsonl steps (those _crossed gives), the resumed step and
            data cursor, and a bitwise round-trip of params, stats and Adam
            state through save and load
@@ -162,7 +175,7 @@ wall time:
            serving.load_inference on the same input, TF32 off in both;
            eval-image on 4 PNGs (4 disparity PNGs); simple-depth --iters 20
            (the loss falls); profile --steps 2 (its trace.json names K1 and
-           K2 twice each, K3 never)
+           K2 twice each, K3 never, the projection's kernels 4 times each)
   times    per kernel at the main-path shape, C = 1 and (under "C3") C = 3:
            kernel and library (F.grid_sample, aten.grid_sampler_2d_backward
            with the one output the kernel computes) times with the L2
@@ -173,13 +186,20 @@ wall time:
            run's inputs. K3 and its library call also clean cold on the
            warp bench's smooth warp (`*_smooth`) and on scattered uv
            (`*_scattered`), and K3's bound also with the wrapper's zero fill
-           of d_img that its times include (`bound_ms_with_fill`)
+           of d_img that its times include (`bound_ms_with_fill`); and
+           project_fwd and project_bwd for one source at the main path's
+           shape, K shared (`per_item_K` beside): the same three times, the
+           plain twin's, the library's (autograd of project_plain: the
+           forward with grad recording, the backward alone on a kept graph)
+           and the bound from the bytes each must move
 
 The line before the last is {"kernels": [...]}, where the `launches` of K1
 and K2 are the first fit's, counted by kernel name, and K3's the warp
 bench's (training never runs it), `launches_serving` those of the
 eval, export and serve phases (0) and `launches_cli_profile` those in the
-trace of the cli phase's `profile --steps 2`; the last line is
+trace of the cli phase's `profile --steps 2`; the projection's two rows
+give theirs by kernel name (project_bwd's for both of its kernels), every
+count reset to 0 just before its phase; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and exits nonzero.
 Without a CUDA device, or beside no monodepth2_torch package, it prints no
 result and exits nonzero. Every subprocess has a timeout; the threads are
@@ -211,6 +231,9 @@ N_WARP = 2 * 4 * BATCH
 OPS_COORDS, OPS_FWD_CH, OPS_BWD_CH = 14, 11, 22
 OPS_IMG_WEIGHTS, OPS_BWD_IMG_CH = 6, 8
 TPU_KERNELS = "monodepth2_tpu/ops/pallas/grid_sample_kernel.py"
+# the projection (ops/cuda/project.cu); project_bwd's launch enqueues the
+# last two
+PROJECT_KERNELS = ("project_fwd_kernel", "project_bwd_kernel", "project_bwd_reduce_kernel")
 
 
 def emit(phase: str, **fields) -> None:
@@ -255,12 +278,62 @@ def compare_kernels(torch, GS, img, uv, g):
 
 
 def reset(GS):
-    for k in GS.KERNELS:
+    """Zero the launch counters of the warp's and the projection's wrappers."""
+    from monodepth2_torch.ops import geometry
+
+    for k in (*GS.KERNELS, *geometry.KERNELS):
         k.launches = 0
 
 
 def counts(GS):
     return {k.name: k.launches for k in GS.KERNELS}
+
+
+def project_counts() -> dict:
+    """The projection wrappers' launches since the last reset."""
+    from monodepth2_torch.ops import geometry
+
+    return {k.name: k.launches for k in geometry.KERNELS}
+
+
+def project_by_name(names) -> dict:
+    """Launches of each projection kernel among device activity names."""
+    names = list(names)
+    return {k: sum(1 for n in names if k in n) for k in PROJECT_KERNELS}
+
+
+def compare_project(torch, PG, points, K, R, t, g, w, h) -> dict:
+    """project_fwd and project_bwd against their plain twins, at the limits
+    of tests/test_torch_cuda.py: uv within 1e-6 abs; d_points within 1e-5
+    rel + 1e-6 abs; dR and dt within 1e-5 relative Frobenius; a second
+    backward the same bits; one launch of each wrapper. Raises if any fails."""
+    before = project_counts()
+    uv = PG.project_fwd(points, K, R, t, w, h)
+    d_points, dR, dt = PG.project_bwd(points, K, R, t, g, w, h)
+    again = PG.project_bwd(points, K, R, t, g, w, h)
+    uv_p = PG.project_plain(points, K, R, t, w, h)
+    d_points_p, dR_p, dt_p = PG.project_bwd_plain(points, K, R, t, g, w, h)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in project_counts().items()}
+
+    def rel_fro(x, ref):
+        return float((x.double() - ref.double()).norm() / ref.double().norm())
+
+    errs = dict(
+        uv_max_abs_err=float((uv - uv_p).abs().max()),
+        d_points_max_abs_err=float((d_points - d_points_p).abs().max()),
+        d_points_excess=float(((d_points - d_points_p).abs() - (1e-6 + 1e-5 * d_points_p.abs())).max()),
+        dR_rel_fro=rel_fro(dR, dR_p), dt_rel_fro=rel_fro(dt, dt_p),
+        bwd_bitwise_repeat=all(torch.equal(a, b) for a, b in zip(again, (d_points, dR, dt))),
+        launches=launched,
+    )
+    check(all(bool(torch.isfinite(x).all()) for x in (uv, d_points, dR, dt)), "non-finite projection output")
+    check(errs["uv_max_abs_err"] <= 1e-6, f"project_fwd disagrees with plain: {errs}")
+    check(errs["d_points_excess"] <= 0, f"project_bwd's d_points disagree with plain: {errs}")
+    check(errs["dR_rel_fro"] <= 1e-5 and errs["dt_rel_fro"] <= 1e-5, f"project_bwd's dR, dt disagree: {errs}")
+    check(errs["bwd_bitwise_repeat"], f"project_bwd's repeat differs: {errs}")
+    check(launched == {PG.project_fwd.name: 1, PG.project_bwd.name: 2}, f"projection launches {launched}")
+    return errs
 
 
 def load_twin(twin, state) -> None:
@@ -296,7 +369,8 @@ def graph_config(TrainConfig, **kw):
 
 def graph_phase(torch, np, GS, ctx, device="cuda") -> dict:
     """Replayed fp32 micro-steps against an eager twin from the same state,
-    and the warp kernels counted by name in a window of replays."""
+    and the warp and projection kernels counted by name in a window of
+    replays."""
     from monodepth2_torch.device import synchronize
     from monodepth2_torch.models import Model
     from monodepth2_torch.tools.profile_breakdown import kernel_counts
@@ -359,8 +433,12 @@ def graph_phase(torch, np, GS, ctx, device="cuda") -> dict:
     want = {"grid_sample_fwd_kernel": n_replays, "grid_sample_bwd_uv_kernel": n_replays,
             "grid_sample_bwd_img_kernel": 0}
     check(by_name == want, f"warp kernels in {n_replays} replayed steps by name {by_name}, want {want}")
-    return dict(rows=rows, replayed_kernels_by_name=by_name, device_activities=len(names),
-                wrapper_launches=wrapper_counts, steps=state.step)
+    # the projection kernels (ops/cuda/project.cu): one of each a source
+    projected = project_by_name(names)
+    want = dict.fromkeys(projected, len(cfg.source_ids) * n_replays)
+    check(projected == want, f"projection kernels in {n_replays} replayed steps by name {projected}, want {want}")
+    return dict(rows=rows, replayed_kernels_by_name=by_name, replayed_projection_by_name=projected,
+                device_activities=len(names), wrapper_launches=wrapper_counts, steps=state.step)
 
 
 def graph_bf16_phase(torch, np, ctx, device="cuda") -> dict:
@@ -433,18 +511,23 @@ def fit_phase(torch, np, GS, tmp, device="cuda") -> tuple:
     with trace(host=False) as prof:
         state, _ = fit(cfg, ds, max_steps=20, verbose=False, device=device)
         synchronize(torch.device(device))
-    calls = counts(GS)
+    calls, projection_calls = counts(GS), project_counts()
     # the wrappers run in the eager warm-up steps and in the capture,
     # which records the kernels without launching them; the replays run
     # no Python, so the launches are counted by kernel name
-    by_name = kernel_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name, projected = kernel_counts(names), project_by_name(names)
     out["first_fit"] = dict(step=state.step, s=round(time.perf_counter() - t, 3), wrapper_calls=calls,
-                            launches_by_name=by_name)
+                            launches_by_name=by_name, projection_wrapper_calls=projection_calls,
+                            projection_launches_by_name=projected)
     check(calls[GS.grid_sample_fwd.name] > 0 and calls[GS.grid_sample_bwd_uv.name] > 0
           and calls[GS.grid_sample_bwd_img.name] == 0, f"fit's wrapper calls {calls}: want K1, K2 and no K3")
     want = {"grid_sample_fwd_kernel": state.step, "grid_sample_bwd_uv_kernel": state.step,
             "grid_sample_bwd_img_kernel": 0}
     check(by_name == want, f"fit's launches by kernel name {by_name}, want one K1 and K2 a step: {want}")
+    want = dict.fromkeys(PROJECT_KERNELS, len(cfg.source_ids) * state.step)
+    check(projected == want, f"fit's projection launches by kernel name {projected}, want one a source: {want}")
+    check(all(n > 0 for n in projection_calls.values()), f"fit's projection wrapper calls {projection_calls}")
     first = state.step
 
     # a new recorder: the first fit's loader thread may still be loading
@@ -1195,7 +1278,8 @@ def cli_phase(torch, np, tmp, width=WIDTH, height=HEIGHT, device="cuda") -> dict
     serving.load_inference on the same input, TF32 off in both processes
     (NVIDIA_TF32_OVERRIDE=0 for the server), then terminated; eval-image on
     4 PNGs (4 disparity PNGs); simple-depth --iters 20 (the loss falls);
-    profile --steps 2 (trace.json naming K1 and K2, launched once a step)."""
+    profile --steps 2 (trace.json naming K1 and K2, launched once a step,
+    and the projection's kernels once a source)."""
     import io
     import os
     import subprocess
@@ -1259,9 +1343,10 @@ def cli_phase(torch, np, tmp, width=WIDTH, height=HEIGHT, device="cuda") -> dict
     check(len(list((tmp / "sd").glob("d-*.png"))) == 5, "simple-depth PNGs")
     trace = json.loads((tmp / "prof" / "trace.json").read_text())
     names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
-    profiled = kernel_counts(names)
+    profiled = {**kernel_counts(names), **project_by_name(names)}
     if device == "cuda":
-        want = {"grid_sample_fwd_kernel": 2, "grid_sample_bwd_uv_kernel": 2, "grid_sample_bwd_img_kernel": 0}
+        want = {"grid_sample_fwd_kernel": 2, "grid_sample_bwd_uv_kernel": 2, "grid_sample_bwd_img_kernel": 0,
+                **dict.fromkeys(PROJECT_KERNELS, 2 * 2)}  # two sources a step
         check(profiled == want, f"profile's trace: launches by kernel name {profiled}, want {want}")
     out.update(train=dict(metrics=logged, params_moved_rel_l2=moved), simple_depth=iters, profile=profiled)
 
@@ -1369,6 +1454,9 @@ def main() -> int:
     from monodepth2_torch.utils.profiler import time_ms
 
     GS = importlib.import_module("monodepth2_torch.ops.grid_sample")
+    from monodepth2_torch.ops import geometry as PG
+    from monodepth2_torch.tools import project_bench
+
     dev = torch.device("cuda")
 
     # ---- env
@@ -1382,7 +1470,8 @@ def main() -> int:
     t = time.perf_counter()
     path = _lib.build()
     lib = _lib.load()
-    ptxas = _lib.ptxas_report()
+    _lib.load(_lib.PROJECT_SOURCE)
+    ptxas = {**_lib.ptxas_report(), **_lib.ptxas_report(source=_lib.PROJECT_SOURCE)}
     check(all(r["spill_store_bytes"] == 0 for r in ptxas.values()), f"a kernel spills: {ptxas}")
     # ptxas counts only static shared memory; K3's launch adds dynamic
     emit("build", build_s=round(time.perf_counter() - t, 3), library=path.name, flags=" ".join(_lib.NVCC_FLAGS),
@@ -1434,6 +1523,16 @@ def main() -> int:
             img_errs.append(checks["max_abs_err"])
             emit("kernels", kernel=GS.grid_sample_bwd_img.name, C=c, case=case, shape=list(img.shape),
                  points=uv.shape[1], **{f"bwd_img_{k}": v for k, v in checks.items()})
+
+    # ---- project: the projection's kernels against their plain twins at
+    # the main path's shape for one source (S·batch = 16 items of 128×416)
+    n_proj = N_WARP // 2
+    project_errs = []
+    for per_item_K in (False, True):
+        points, K, R, t, g = project_bench.make_inputs(n_proj, HEIGHT, WIDTH, dev, per_item_K)
+        errs_p = compare_project(torch, PG, points, K, R, t, g, WIDTH, HEIGHT)
+        project_errs.append(errs_p)
+        emit("project", K="per item" if per_item_K else "shared", shape=[n_proj, P], **errs_p)
 
     # ---- autograd: the op with both gradients, through all three kernels
     img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
@@ -1495,11 +1594,15 @@ def main() -> int:
             (float((a - b).norm() / b.norm()), name_p) for name_p, a, b in grads if float(b.norm()) > 0
         ))
     torch.cuda.synchronize()
-    slice_launches = counts(GS)
+    slice_launches, slice_projection = counts(GS), project_counts()
     # training launches the forward and the coordinate VJP once a step, and
     # never the image VJP: source frames are data, not parameters
     want = {GS.grid_sample_fwd.name: 3, GS.grid_sample_bwd_uv.name: 3, GS.grid_sample_bwd_img.name: 0}
     check(slice_launches == want, f"launches in 3 main-path steps {slice_launches}, want {want}")
+    # the projection once a source a step (the plain twin's steps project
+    # through project_plain)
+    want = dict.fromkeys(slice_projection, 3 * len(cfg.source_ids))
+    check(slice_projection == want, f"projection launches in 3 main-path steps {slice_projection}, want {want}")
     check(all(np.isfinite(losses)) and all(np.isfinite(mean_disps)), f"non-finite metrics {losses} {mean_disps}")
     check(tuple(aux["disparity"].shape) == (BATCH, HEIGHT, WIDTH, 1), "disparity shape")
     check(all(tuple(w.shape) == (BATCH, HEIGHT, WIDTH, 1) for w in aux["warped"]), "warped shape")
@@ -1513,7 +1616,7 @@ def main() -> int:
     emit("slice", config=f"ResNet-18 {WIDTH}x{HEIGHT} gray batch {BATCH} fp32, TF32 off", losses=losses,
          plain_losses=plain_losses, max_rel_loss_diff=rel, grad_rel_l2_diff=grad_diffs,
          worst_param_grad_rel_l2_diff=worst,
-         mean_disparity=mean_disps, launches=slice_launches)
+         mean_disparity=mean_disps, launches=slice_launches, projection_launches=slice_projection)
 
     # ---- graph: the scanned step, replayed, against eager twins
     graph = graph_phase(torch, np, GS, ctx)
@@ -1561,7 +1664,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         emit("serve", **serve_phase(torch, np, GS, artifact))
         torch.backends.cudnn.allow_tf32 = True
-    serving_launches = counts(GS)
+    serving_launches, serving_projection = counts(GS), project_counts()
 
     # serve_bench: the serving tools in process, shortened
     t = time.perf_counter()
@@ -1736,7 +1839,39 @@ def main() -> int:
             })
         return rows
 
+    def project_rows(per_item_K):
+        """{wrapper name: the kernel's times, the plain twin's and the
+        library's (autograd of project_plain: its forward with grad
+        recording, its backward alone on a kept graph), and the bound from
+        this run's bytes} for one source at the main path's shape."""
+        points, K, R, t, g = project_bench.make_inputs(n_proj, HEIGHT, WIDTH, dev, per_item_K, seed=1)
+        xs = [x.detach().clone().requires_grad_() for x in (points, R, t)]
+        uv = PG.project_plain(xs[0], K, xs[1], xs[2], WIDTH, HEIGHT)
+        nbytes = project_bench.project_bytes(n_proj, P)
+        rows = {}
+        for k, key, kernel, plain_fn, library in (
+            (
+                PG.project_fwd, "fwd",
+                lambda: PG.project_fwd(points, K, R, t, WIDTH, HEIGHT),
+                lambda: PG.project_plain(points, K, R, t, WIDTH, HEIGHT),
+                lambda: PG.project_plain(xs[0], K, xs[1], xs[2], WIDTH, HEIGHT),
+            ),
+            (
+                PG.project_bwd, "bwd",
+                lambda: PG.project_bwd(points, K, R, t, g, WIDTH, HEIGHT),
+                lambda: PG.project_bwd_plain(points, K, R, t, g, WIDTH, HEIGHT),
+                lambda: torch.autograd.grad(uv, xs, g, retain_graph=True),
+            ),
+        ):
+            rows[k.name] = dict(
+                **timings(kernel), plain_ms=time_ms(plain_fn, dev, 20, flush_l2=True), **timings(library, "library_"),
+                bound_ms=nbytes[key] / H100_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes[key],
+                shape=[n_proj, P], K="per item" if per_item_K else "shared",
+            )
+        return rows
+
     rows, rows_c3 = time_rows(1), time_rows(3)
+    rows_project, rows_project_k = project_rows(False), project_rows(True)
     max_errs = [max(e[i] for e in errs.values()) for i in range(3)]
     max_errs[2] = max(max_errs[2], *img_errs)
     kernels = []
@@ -1760,6 +1895,27 @@ def main() -> int:
             # the cli phase's `profile --steps 2`, counted by name in its trace
             launches_cli_profile=cli["profile"][f"{k.name}_kernel"],
             max_abs_err=err, **rows[k.name], C3=rows_c3[k.name],
+        ))
+    fit_projection = fitted["first_fit"]["projection_launches_by_name"]
+    replayed_projection = graph["replayed_projection_by_name"]
+    for k, err, names in (
+        (PG.project_fwd, {"max_abs_err": max(e["uv_max_abs_err"] for e in project_errs)}, PROJECT_KERNELS[:1]),
+        (PG.project_bwd, {"max_abs_err": max(e["d_points_max_abs_err"] for e in project_errs),
+                          "dR_rel_fro": max(e["dR_rel_fro"] for e in project_errs),
+                          "dt_rel_fro": max(e["dt_rel_fro"] for e in project_errs)}, PROJECT_KERNELS[1:]),
+    ):
+        kernels.append(dict(
+            name=k.name, route="cuda", source="monodepth2_torch/ops/cuda/project.cu",
+            replaces="none: project (monodepth2_tpu/ops/geometry.py), left to XLA", kernel_names=list(names),
+            # by kernel name in the first fit's profile, the wrappers' calls
+            # beside (its eager steps and the capture)
+            launches={n: fit_projection[n] for n in names}, fit_wrapper_calls=fitted["first_fit"][
+                "projection_wrapper_calls"][k.name],
+            launches_per_train_step=slice_projection[k.name] // 3,
+            launches_in_10_replays={n: replayed_projection[n] for n in names},
+            launches_serving=serving_projection[k.name],
+            launches_cli_profile={n: cli["profile"][n] for n in names},
+            **err, **rows_project[k.name], per_item_K=rows_project_k[k.name],
         ))
     emit("times", total_s=round(time.perf_counter() - T0, 3), power_limit=smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
-"""Build and bind the hand-written CUDA kernels (grid_sample.cu).
+"""Build and bind the hand-written CUDA kernels (grid_sample.cu, project.cu).
 
-The source compiles with plain ``nvcc`` into a shared library with a C
+Each source compiles with plain ``nvcc`` into a shared library with a C
 interface, loaded through ``ctypes``: no PyTorch headers, no
 ``torch.utils.cpp_extension``, no ninja, no lock file. The build happens at
 first use, into ``_build/`` beside this file, under a name keyed by the
@@ -26,6 +26,7 @@ import threading
 from pathlib import Path
 
 SOURCE = Path(__file__).with_name("grid_sample.cu")
+PROJECT_SOURCE = Path(__file__).with_name("project.cu")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = (
     "-O3",
@@ -41,7 +42,7 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 300
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -52,7 +53,7 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build grid_sample.cu")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
 def library_path(source: Path = SOURCE) -> Path:
@@ -89,7 +90,9 @@ def build(source: Path = SOURCE) -> Path:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_KERNEL = re.compile(r"(grid_sample_(?:fwd|bwd_uv|bwd_img)_kernel)(?:ILi(\d+)EE)?")
+_KERNEL = re.compile(
+    r"((?:grid_sample_(?:fwd|bwd_uv|bwd_img)|project_(?:fwd|bwd|bwd_reduce))_kernel)(?:ILi(\d+)EE)?"
+)
 _NUMBERS = {
     "registers": re.compile(r"Used (\d+) registers"),
     "smem_bytes": re.compile(r"(\d+) bytes smem"),
@@ -125,21 +128,28 @@ def ptxas_report(text: str | None = None, source: Path = SOURCE) -> dict:
     return report
 
 
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each C entry point's arguments and result; a library binds those it has
+# (an earlier grid_sample.cu lacks grid_sample_bwd_img_smem_bytes)
+_SIGNATURES = {
+    "grid_sample_fwd": ([_PTR] * 3 + [_I32] * 5 + [_PTR], _I32),
+    "grid_sample_bwd_uv": ([_PTR] * 4 + [_I32] * 5 + [_PTR], _I32),
+    "grid_sample_bwd_img": ([_PTR] * 3 + [_I32] * 5 + [_PTR], _I32),
+    "grid_sample_bwd_img_smem_bytes": ([_I32] * 3, _I32),
+    "grid_sample_error_string": ([_I32], ctypes.c_char_p),
+    "project_fwd": ([_PTR] * 5 + [_I32] * 5 + [_F32, _PTR], _I32),
+    "project_bwd": ([_PTR] * 9 + [_I32] * 5 + [_F32, _PTR], _I32),
+    "project_bwd_blocks": ([_I32], _I32),
+}
+
+
 def _bind(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare the C signatures."""
+    """Load a built library and declare the C signatures of its entry points."""
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grid_sample_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.grid_sample_fwd.restype = i32
-    lib.grid_sample_bwd_uv.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.grid_sample_bwd_uv.restype = i32
-    lib.grid_sample_bwd_img.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.grid_sample_bwd_img.restype = i32
-    lib.grid_sample_error_string.argtypes = [i32]
-    lib.grid_sample_error_string.restype = ctypes.c_char_p
-    if hasattr(lib, "grid_sample_bwd_img_smem_bytes"):  # absent from sources before K3's band
-        lib.grid_sample_bwd_img_smem_bytes.argtypes = [i32, i32, i32]
-        lib.grid_sample_bwd_img_smem_bytes.restype = i32
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -152,23 +162,20 @@ def bwd_img_smem_bytes(lib: ctypes.CDLL, h: int, w: int, c: int):
     return lib.grid_sample_bwd_img_smem_bytes(h, w, c)
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed and load grid_sample.cu, once per process."""
-    global _lib
+def load(source: Path = SOURCE) -> ctypes.CDLL:
+    """Build if needed and load `source`, once per process: grid_sample.cu by
+    default, PROJECT_SOURCE, or another source with the C interface of one of
+    them (an earlier version of grid_sample.cu, for a comparison on the card)."""
+    source = Path(source)
     with _lock:
-        if _lib is None:
-            _lib = _bind(build())
-        return _lib
+        if source not in _libs:
+            _libs[source] = _bind(build(source))
+        return _libs[source]
 
 
-def load_source(source: Path) -> ctypes.CDLL:
-    """Build and load another source with grid_sample.cu's C interface (an
-    earlier version of it, for a comparison on the card)."""
-    return _bind(build(Path(source)))
-
-
-def check(lib: ctypes.CDLL, code: int, name: str) -> None:
-    """Raise if a launcher returned a CUDA error."""
+def check(code: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error, named by grid_sample.cu's
+    entry point (cudaGetErrorString, the same for every library's codes)."""
     if code != 0:
-        msg = lib.grid_sample_error_string(code).decode()
+        msg = load().grid_sample_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -39,6 +39,8 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from ._kernel import Kernel
+
 # ---------------------------------------------------------------- plain versions
 
 
@@ -138,29 +140,7 @@ def _check_cuda(name: str, image: Tensor, *others: Tensor) -> None:
         raise ValueError(f"{name}: sizes exceed the kernel's int32 arguments")
 
 
-class _Kernel:
-    """A kernel's wrapper: `launches` counts the kernel launches it made."""
-
-    name = ""
-
-    def __init__(self):
-        self.launches = 0
-
-    def _launch(self, fn, *args) -> None:
-        from .cuda import _lib
-
-        lib = _lib.load()
-        device = args[0].device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            ptrs = [t.data_ptr() for t in args if isinstance(t, Tensor)]
-            sizes = [a for a in args if not isinstance(a, Tensor)]
-            code = getattr(lib, fn)(*ptrs, *sizes, stream)
-        _lib.check(lib, code, fn)
-        self.launches += 1
-
-
-class GridSampleFwd(_Kernel):
+class GridSampleFwd(Kernel):
     """K1 wrapper: (N,H,W,C) image, (N,P,2) uv -> (N,P,C)."""
 
     name = "grid_sample_fwd"
@@ -177,7 +157,7 @@ class GridSampleFwd(_Kernel):
         return out
 
 
-class GridSampleBwdUV(_Kernel):
+class GridSampleBwdUV(Kernel):
     """K2 wrapper: image, uv and the output cotangent g (N,P,C) -> duv (N,P,2)."""
 
     name = "grid_sample_bwd_uv"
@@ -196,7 +176,7 @@ class GridSampleBwdUV(_Kernel):
         return duv
 
 
-class GridSampleBwdImg(_Kernel):
+class GridSampleBwdImg(Kernel):
     """K3 wrapper: image (read for its shape only), uv and g (N,P,C) ->
     d_image (N,H,W,C). Zeroes the fp32 output on the launch's stream; the
     kernel adds into it with atomics, so the sum's last bits vary between

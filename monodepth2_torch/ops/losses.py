@@ -69,13 +69,14 @@ def warp_images(
 
     disparity (N,H,W,1), frames (N,L,H,W,C), poses[i] = (R (N,3,3),
     t (N,3,1)) target→source_i, grid (H*W,3). Returns [(N,H,W,C)] per source.
+    method: as grid_sample's, for the projection and the warp.
     """
     n, h, w, _ = disparity.shape
     depth = disparity_to_depth(disparity, min_depth, max_depth)
     points = backproject(depth.reshape(n, h * w), invK, grid)
     warped = []
     for (R, t), sid in zip(poses, source_ids):
-        uv = project(points, K, R, t, w, h)
+        uv = project(points, K, R, t, w, h, method=method)
         sampled = grid_sample(frames[:, sid], uv, method=method)
         warped.append(sampled.reshape(n, h, w, frames.shape[-1]))
     return warped

@@ -121,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if unknown:
         raise ValueError(f"unknown variants {sorted(unknown)}; choose from {list(VARIANTS)}")
     builds = build_variants(names)
-    libs = {"current": _lib.load(), **{n: _lib.load_source(src) for n, (src, _) in builds.items()}}
+    libs = {"current": _lib.load(), **{n: _lib.load(src) for n, (src, _) in builds.items()}}
     N, H, W = 32, 128, 416
     P = H * W
     channels = [int(c) for c in args.channels.split(",")]

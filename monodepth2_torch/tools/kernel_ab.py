@@ -68,7 +68,7 @@ def _launch(lib, name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [a.data_ptr() for a in args if isinstance(a, torch.Tensor)]
     sizes = [a for a in args if not isinstance(a, torch.Tensor)]
-    _lib.check(lib, getattr(lib, name)(*ptrs, *sizes, stream), name)
+    _lib.check(getattr(lib, name)(*ptrs, *sizes, stream), name)
 
 
 def version_fns(lib, img, uv, g, out, duv, dimg):
@@ -225,7 +225,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(args.device)
     if device.type != "cuda":
         raise RuntimeError("kernel_ab compares CUDA kernels: it needs a card")
-    versions = {str(path): _lib.load_source(Path(path)) for path in args.baseline}
+    versions = {str(path): _lib.load(Path(path)) for path in args.baseline}
     versions["current"] = _lib.load()
     channels = [int(x) for x in args.channels.split(",")]
     N, H, W = args.n, args.height, args.width

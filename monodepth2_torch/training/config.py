@@ -76,7 +76,8 @@ class TrainConfig:
     compute_dtype: str = "float32"
 
     # warp implementation: None = auto (the hand-written CUDA kernels on the
-    # card, their plain versions on the CPU); "gather" = the plain version;
+    # card, their plain versions on the CPU); "gather" = the plain versions
+    # of the warp and of the projection (ops/geometry.py), on any device;
     # "pallas" = the kernels (see ops/grid_sample.py). "onehot" is TPU-only.
     warp_method: Optional[str] = None
 

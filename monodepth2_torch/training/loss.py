@@ -135,7 +135,7 @@ def train_loss(
 
     uvs = []
     for R, t in transforms:
-        uvs.append(project(points, K_t, R.repeat(S, 1, 1), t.repeat(S, 1, 1), w, h))
+        uvs.append(project(points, K_t, R.repeat(S, 1, 1), t.repeat(S, 1, 1), w, h, method=cfg.warp_method))
     uv_all = torch.cat(uvs, dim=0)  # (Src*S*N, HW, 2)
 
     src_imgs = torch.cat(

@@ -12,7 +12,8 @@ import importlib
 import pytest
 import torch
 
-from monodepth2_torch.tools import kernel_ab, warp_kernel_bench
+from monodepth2_torch.ops import geometry as PG
+from monodepth2_torch.tools import kernel_ab, project_bench, warp_kernel_bench
 
 GS = importlib.import_module("monodepth2_torch.ops.grid_sample")
 
@@ -160,6 +161,107 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         GS.grid_sample_bwd_img(img, uv, g.double())
     with pytest.raises(ValueError):
         GS.grid_sample_bwd_img(img, uv.cpu(), g)
+
+
+# project's kernels: batch 4's shape for one source (S·batch = 16 items of
+# 128×416) and an odd size that is no multiple of a block (37×23)
+PROJECT_SHAPES = [(16, 128, 416), (3, 23, 37)]
+
+
+def _rel_fro(x, ref) -> float:
+    return float((x.double() - ref.double()).norm() / ref.double().norm())
+
+
+@pytest.mark.parametrize("per_item_K", [False, True])
+@pytest.mark.parametrize("n, h, w", PROJECT_SHAPES)
+def test_project_kernels_match_plain(dev, n, h, w, per_item_K):
+    """project_fwd and project_bwd against their plain twins on the card,
+    with a point behind the camera and one at c_z = 1e-2 in every item:
+    uv within 1e-6; d_points within 1e-5 relative + 1e-6; dR and dt within
+    1e-5 relative Frobenius; two backward runs the same bits; one launch
+    each. (Both sides recompute c in fp32 with the same operations; against
+    a float64 twin both are off by ~2e-2 here, all from the c_z = 1e-2
+    point, whose fp32 c_z carries the rounding of its 1-100 m terms.)"""
+    points, K, R, t, g = project_bench.make_inputs(n, h, w, dev, per_item_K, seed=n)
+    before = [k.launches for k in PG.KERNELS]
+    uv = PG.project_fwd(points, K, R, t, w, h)
+    d_points, dR, dt = PG.project_bwd(points, K, R, t, g, w, h)
+    torch.cuda.synchronize()
+    assert [k.launches for k in PG.KERNELS] == [x + 1 for x in before]
+    torch.testing.assert_close(uv, PG.project_plain(points, K, R, t, w, h), rtol=0, atol=1e-6)
+    plain = PG.project_bwd_plain(points, K, R, t, g, w, h)
+    torch.testing.assert_close(d_points, plain[0], rtol=1e-5, atol=1e-6)
+    assert _rel_fro(dR, plain[1]) <= 1e-5 and _rel_fro(dt, plain[2]) <= 1e-5, (
+        _rel_fro(dR, plain[1]), _rel_fro(dt, plain[2]))
+    again = PG.project_bwd(points, K, R, t, g, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(again, (d_points, dR, dt)))
+
+
+@pytest.mark.parametrize("per_item_K", [False, True])
+def test_project_replayed_in_a_graph_equals_eager(dev, per_item_K):
+    """project forward and backward through the autograd Function, captured
+    in a CUDA graph: a replay gives the eager call's bits, and the capture is
+    one launch of each kernel."""
+    n, h, w = 4, 23, 37
+    points, K, R, t, g = project_bench.make_inputs(n, h, w, dev, per_item_K)
+
+    def run():
+        xs = [x.detach().requires_grad_() for x in (points, R, t)]
+        uv = PG.project(xs[0], K, xs[1], xs[2], w, h)
+        return (uv.detach(), *torch.autograd.grad(uv, xs, g))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()  # warm-up on a side stream, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    before = [k.launches for k in PG.KERNELS]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    assert [k.launches for k in PG.KERNELS] == [x + 1 for x in before]
+    for out in captured:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [k.launches for k in PG.KERNELS] == [x + 1 for x in before]
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_project_refuses_what_the_kernels_do_not_take(dev):
+    """On the card the projection never falls back to the plain version."""
+    points, K, R, t, g = project_bench.make_inputs(2, 8, 8, dev)
+    with pytest.raises(TypeError):
+        PG.project_fwd(points.double(), K.double(), R.double(), t.double(), 8, 8)
+    with pytest.raises(TypeError):
+        PG.project(points.double(), K, R.double(), t.double(), 8, 8)
+    with pytest.raises(ValueError):
+        PG.project_fwd(points[:, ::2], K, R, t, 8, 8)
+    with pytest.raises(ValueError):
+        PG.project_bwd(points, K, R, t, g.transpose(0, 1).contiguous().transpose(0, 1), 8, 8)
+    with pytest.raises(ValueError):
+        PG.project_fwd(points, K[None].expand(3, 3, 3).contiguous(), R, t, 8, 8)
+    with pytest.raises(ValueError):
+        PG.project_bwd(points, K, R, t, g[:, :-1], 8, 8)
+    with pytest.raises(ValueError):
+        PG.project_fwd(points, K.cpu(), R, t, 8, 8)
+    with pytest.raises(ValueError, match="K"):
+        PG.project(points, K.clone().requires_grad_(), R, t, 8, 8)
+
+
+def test_project_gather_is_the_plain_version_on_the_card(dev):
+    """method="gather" projects through project_plain on the card: float64,
+    a gradient for K, and no kernel launched."""
+    points, K, R, t, g = (x.double() for x in project_bench.make_inputs(2, 8, 8, dev))
+    K = K.requires_grad_()
+    before = [k.launches for k in PG.KERNELS]
+    uv = PG.project(points, K, R, t, 8, 8, method="gather")
+    (d_K,) = torch.autograd.grad(uv, K, g)
+    assert uv.dtype == torch.float64 and bool(torch.isfinite(d_K).all())
+    assert torch.equal(uv, PG.project_plain(points, K, R, t, 8, 8))
+    assert [k.launches for k in PG.KERNELS] == before
 
 
 @pytest.fixture

@@ -120,3 +120,65 @@ def test_disparity_to_depth():
         lambda d: T.disparity_to_depth(d, 0.1, 100.0),
         [disp],
     )
+
+
+def _project_case(per_item_K, dtype=np.float32, n=3, w=8, h=6, seed=5):
+    """project's inputs at a tiny size, with one point behind the camera and
+    one with c_z near 0 in each item; and a cotangent g (N,HW,2)."""
+    rng = np.random.default_rng(seed)
+    K = np.asarray([[10.0, 0, w / 2], [0, 10.0, h / 2], [0, 0, 1.0]])
+    if per_item_K:
+        K = K * rng.uniform(0.8, 1.2, size=(n, 3, 1)) * np.asarray([[1.0], [1.0], [0.0]]) + np.asarray(
+            [[0, 0, 0], [0, 0, 0], [0, 0, 1.0]]
+        )
+    R = np.asarray(G.so3_exp_map(jnp.asarray(rng.uniform(-0.1, 0.1, size=(n, 3)).astype(np.float32))))
+    t = rng.uniform(-0.2, 0.2, size=(n, 3, 1))
+    points = rng.uniform(-2.0, 2.0, size=(n, h * w, 3))
+    points[..., 2] = rng.uniform(1.0, 5.0, size=(n, h * w))
+    points[:, 0, 2] = -3.0  # behind the camera
+    # c_z = (R p + t)_z = 0.05: solve for p_z
+    points[:, 1, 2] = (0.05 - t[:, 2, 0] - R[:, 2, 0] * points[:, 1, 0] - R[:, 2, 1] * points[:, 1, 1]) / R[:, 2, 2]
+    g = rng.normal(size=(n, h * w, 2))
+    return [x.astype(dtype) for x in (points, K, R, t, g)], (w, h)
+
+
+@pytest.mark.parametrize("per_item_K", [False, True])
+def test_project_function_matches_autograd(per_item_K):
+    """The Function's plain forward equals project_plain, and its written-out
+    backward equals autograd of project_plain, in float64 (1e-12)."""
+    (points, K, R, t, g), (w, h) = _project_case(per_item_K, np.float64)
+    xs = [torch.tensor(x, requires_grad=True) for x in (points, R, t)]
+    K, g = torch.from_numpy(K), torch.from_numpy(g)
+    ref = T.project_plain(xs[0], K, xs[1], xs[2], w, h)
+    grads_ref = torch.autograd.grad(ref, xs, g)
+    out = T._Project.apply(xs[0], K, xs[1], xs[2], w, h, 1e-7)
+    grads = torch.autograd.grad(out, xs, g)
+    torch.testing.assert_close(out, ref, rtol=1e-12, atol=1e-12)
+    for got, want in zip(grads, grads_ref):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert torch.equal(T.project(xs[0], K, xs[1], xs[2], w, h), ref)  # the CPU path is the plain one
+    assert [k.launches for k in T.KERNELS] == [0, 0]  # no launch on the CPU
+
+
+@pytest.mark.parametrize("per_item_K", [False, True])
+def test_project_bwd_matches_jax_vjp(per_item_K):
+    """d_points, dR and dt of the written-out backward, and of the Function,
+    against jax.vjp of the JAX package's project (float32, 1e-4 relative as
+    test_backproject_project)."""
+    (points, K, R, t, g), (w, h) = _project_case(per_item_K)
+    _, vjp = jax.vjp(lambda p, r, tt: G.project(p, jnp.asarray(K), r, tt, w, h), *map(jnp.asarray, (points, R, t)))
+    want = vjp(jnp.asarray(g))
+    args = [torch.from_numpy(x) for x in (points, K, R, t, g)]
+    plain = T.project_bwd_plain(*args, w, h)
+    xs = [a.clone().requires_grad_() for a in (args[0], args[2], args[3])]
+    function = torch.autograd.grad(T._Project.apply(xs[0], args[1], xs[1], xs[2], w, h, 1e-7), xs, args[4])
+    for got in (plain, function):
+        for x, y in zip(got, want):
+            np.testing.assert_allclose(x.detach().numpy(), np.asarray(y), rtol=1e-4, atol=1e-5)
+
+
+def test_project_function_refuses_a_gradient_for_K():
+    (points, K, R, t, _), (w, h) = _project_case(False)
+    args = [torch.from_numpy(x) for x in (points, K, R, t)]
+    with pytest.raises(ValueError, match="K"):
+        T._Project.apply(args[0], args[1].requires_grad_(), args[2], args[3], w, h, 1e-7)

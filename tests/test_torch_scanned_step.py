@@ -241,3 +241,33 @@ def test_configs_keep_steps_per_call():
 
     for path in sorted(glob.glob("configs/*.json")):
         assert asdict(TrainConfig.from_json(open(path).read()))["steps_per_call"] == json.load(open(path))["steps_per_call"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_item_K", [False, True])
+def test_capture_launches_the_projection_once_per_source(per_item_K):
+    """On the card the scanned step's capture launches project_fwd and
+    project_bwd once per source (the loss projects each source once over
+    all scales), and its replays launch none from Python: the launches
+    happen inside the graph, where the wrappers do not see them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the projection kernels have no CPU mode")
+    from monodepth2_torch.ops import geometry
+    from monodepth2_torch.training.state import WARMUP_STEPS
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig(**dict(CFG, warp_method=None, per_item_K=per_item_K))
+    ctx = TrainContext.create(K, W, H, device=dev)
+    frames, Ks = (x.to(dev) for x in _per_item_batches())
+    batch = (lambda i, j: {"frames": frames[i:j], "K": Ks[i:j]}) if per_item_K else (lambda i, j: frames[i:j])
+    state = create_train_state(Model.create(depth=18, in_channels=1, device=dev), cfg)
+    scanned = make_scanned_train_step(ctx, cfg)
+    for _ in range(WARMUP_STEPS):  # the eager warm-up steps
+        scanned(state, batch(0, 1))
+    src = len(cfg.source_ids)
+    before = [k.launches for k in geometry.KERNELS]
+    scanned(state, batch(0, KSTEPS))  # the capture, then replays
+    after = [k.launches for k in geometry.KERNELS]
+    assert [a - b for a, b in zip(after, before)] == [src, src]
+    scanned(state, batch(0, KSTEPS))  # replays only
+    assert [k.launches for k in geometry.KERNELS] == after

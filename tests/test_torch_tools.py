@@ -25,6 +25,7 @@ from monodepth2_torch.tools import (
     kernel_ab,
     loader_bench,
     model_block_bench,
+    project_bench,
     profile_breakdown,
     serving_bench,
     serving_warmup_check,
@@ -237,6 +238,83 @@ ptxas info    : Used 40 registers, used 0 barriers, 16 bytes smem, 400 bytes cme
             registers=40, smem_bytes=16, stack_bytes=8, spill_store_bytes=4, spill_load_bytes=4
         ),
     }
+
+
+def test_ptxas_report_reads_the_projection_kernels():
+    from monodepth2_torch.ops.cuda import _lib
+
+    text = """ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__project_cu_1f2e3d4c_18project_fwd_kernelEPKfS1_S1_S1_Pfiiifff' for 'sm_90a'
+ptxas info    : Used 30 registers, used 0 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__project_cu_1f2e3d4c_18project_bwd_kernelEPKfS1_S1_S1_S1_PfS2_iiifff' for 'sm_90a'
+ptxas info    : Used 64 registers, used 1 barriers, 384 bytes smem, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__project_cu_1f2e3d4c_25project_bwd_reduce_kernelEPKfPfS2_ii' for 'sm_90a'
+ptxas info    : Used 12 registers, used 0 barriers, 384 bytes cmem[0]
+"""
+    report = _lib.ptxas_report(text)
+    assert list(report) == ["project_fwd_kernel", "project_bwd_kernel", "project_bwd_reduce_kernel"]
+    assert report["project_bwd_kernel"]["registers"] == 64 and report["project_bwd_kernel"]["smem_bytes"] == 384
+
+
+@pytest.mark.parametrize("source, names", [
+    ("grid_sample.cu", {"grid_sample_fwd", "grid_sample_bwd_uv", "grid_sample_bwd_img",
+                        "grid_sample_bwd_img_smem_bytes", "grid_sample_error_string"}),
+    ("project.cu", {"project_fwd", "project_bwd", "project_bwd_blocks"}),
+])
+def test_bound_signatures_match_the_sources(source, names):
+    """Each C entry point of the kernels' sources is bound with its arguments
+    in order (ctypes passes an unbound pointer as a 32-bit int): nvcc is not
+    here to check the source, so the test reads its extern "C" block."""
+    import ctypes
+    import re
+
+    from monodepth2_torch.ops.cuda import _lib
+
+    text = _lib.SOURCE.with_name(source).read_text()
+    block = text[text.index('extern "C" {'):]
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float, "cudaStream_t": ctypes.c_void_p}
+    entries = re.findall(r"^(int|const char\*) (\w+)\(([^)]*)\)", block, flags=re.M)
+    assert {name for _, name, _ in entries} == names
+    for restype, name, params in entries:
+        args = [re.sub(r"\s*\w+$", "", a.strip()) for a in params.split(",")]
+        argtypes, bound_restype = _lib._SIGNATURES[name]
+        assert argtypes == [kinds[a] for a in args], name
+        assert bound_restype == (ctypes.c_int if restype == "int" else ctypes.c_char_p), name
+
+
+@pytest.mark.parametrize("per_item_k", [False, True])
+def test_project_bench_on_cpu(capsys, per_item_k):
+    from monodepth2_torch.ops import geometry
+
+    before = [k.launches for k in geometry.KERNELS]
+    out = project_bench.main(["--device", "cpu", "--size", "2x8x12", "--iters", "2"] + ["--per-item-k"] * per_item_k)
+    printed = _printed(capsys)
+    assert printed[:-1] == out["rows"]
+    assert [r["method"] for r in out["rows"]] == list(project_bench.METHODS)
+    for row in out["rows"]:
+        _assert_finite(row, ("fwd_us", "bwd_us", "fwd_bwd_us", "fwd_us_warm", "fwd_bwd_us_warm"))
+    assert out["rows"][0]["fwd_pct_hbm_roofline"] is None and out["rows"][0]["bwd_pct_hbm_roofline"] is None
+    summary = printed[-1]
+    assert summary["shapes"]["size"]["bytes"] == project_bench.project_bytes(2, 96)
+    assert (summary["device"], summary["nvidia_smi"], summary["per_item_K"]) == ("cpu", None, per_item_k)
+    # CPU tensors take the plain versions: no kernel was launched
+    assert [k.launches for k in geometry.KERNELS] == before
+
+
+def test_project_bench_bytes_and_inputs():
+    """At batch 4's shape (16 items of 128×416 for one source) the forward
+    moves 17.0 MB and the backward 27.3 MB: 5.09 and 8.14 µs at 3.35 TB/s,
+    the bounds in PERF.md's kernel table. The inputs put point 0 behind the
+    camera and point 1 at c_z = 1e-2."""
+    b = project_bench.project_bytes(*project_bench.CELLS["b4"][:1], 128 * 416)
+    assert b == {"fwd": 17_039_360, "bwd": 27_262_976}
+    assert b["fwd"] / 3.35e12 * 1e6 == pytest.approx(5.086, abs=1e-3)
+    assert b["bwd"] / 3.35e12 * 1e6 == pytest.approx(8.138, abs=1e-3)
+    points, K, R, t, g = project_bench.make_inputs(3, 6, 8, "cpu", per_item_K=True)
+    assert points.shape == (3, 48, 3) and K.shape == (3, 3, 3) and g.shape == (3, 48, 2)
+    q = points @ R.transpose(-1, -2) + t.transpose(-1, -2)
+    assert bool((q[:, 0, 2] < 0).all())
+    torch.testing.assert_close(q[:, 1, 2], torch.full((3,), 1e-2), rtol=1e-4, atol=1e-6)
 
 
 def test_kernel_ab_needs_a_card():
