@@ -124,8 +124,16 @@ def load_jax_checkpoint(path: str, model: nn.Module) -> dict:
     sidecar records the config, its lr schedule fixes which count it must be.
 
     The sidecar's `treedef_sha` hashes the string form of the JAX treedef,
-    which only jax can build, so it is not checked here.
+    which only jax can build, so it is not checked here. The JAX package
+    has one network, the ResNet Monodepth2 `Model`; any other `model` (a
+    PackNet) raises ValueError.
     """
+    architecture = getattr(model, "architecture", None)
+    if architecture != "monodepth2":
+        raise ValueError(
+            f"{path}: a JAX-package checkpoint holds the ResNet Monodepth2 model only, and cannot load into "
+            f"a {type(model).__name__} (architecture {architecture!r})"
+        )
     params_t, stats_t = params_to_jax(model)
     p_pairs, s_pairs = _flatten_sorted(params_t), _flatten_sorted(stats_t)
     n_p, n_s = len(p_pairs), len(s_pairs)

@@ -220,6 +220,7 @@ def _build_dataset(args, cfg):
                     KittiDataset(
                         args.root, s, target_size=cfg.target_size,
                         augmentations=aug,
+                        grayscale=cfg.in_channels == 1,
                         cache_decoded=getattr(args, "cache_decoded", False),
                     )
                 )
@@ -416,17 +417,13 @@ def cmd_profile(args):
     import torch
 
     from .device import synchronize
-    from .models import Model
+    from .models import create_model
     from .training import TrainContext, create_train_state, make_train_step
     from .utils.profiler import trace
 
     device = _device(args)
     cfg = _build_config(args)
-    model = Model.create(
-        depth=cfg.encoder_depth, in_channels=cfg.in_channels,
-        scale_levels=cfg.scale_levels, device=device,
-    )
-    state = create_train_state(model, cfg)
+    state = create_train_state(create_model(cfg, device=device), cfg)
     K = np.asarray(
         [[482.0, 0, cfg.width / 2], [0, 482.0, cfg.height / 2], [0, 0, 1.0]]
     )

@@ -20,7 +20,7 @@ import torch
 
 from .bridge import load_jax_checkpoint
 from .device import resolve_device
-from .models import Model
+from .models import create_model
 from .ops.geometry import disparity_to_depth
 from .training.config import TrainConfig
 from .utils.metrics import depth_metrics
@@ -42,7 +42,7 @@ def sidecar_config(checkpoint_path: str) -> Optional[TrainConfig]:
     return None
 
 
-def _checkpoint_state_dict(checkpoint_path: str, model: Model) -> dict:
+def _checkpoint_state_dict(checkpoint_path: str, model: torch.nn.Module) -> dict:
     """The model's weights from either checkpoint format, told apart by the
     array names: the port's `model/<state_dict key>`, the JAX package's
     `leaf_00000…`."""
@@ -55,25 +55,23 @@ def _checkpoint_state_dict(checkpoint_path: str, model: Model) -> dict:
     raise ValueError(f"{checkpoint_path}.npz holds neither the port's nor the JAX package's checkpoint")
 
 
-def load_model(cfg: TrainConfig, checkpoint_path: str, device: str | torch.device = "cuda") -> Model:
+def load_model(cfg: TrainConfig, checkpoint_path: str, device: str | torch.device = "cuda") -> torch.nn.Module:
     """Rebuild the model and restore its checkpointed weights, in eval mode
     on `device`.
 
-    The architecture (encoder depth, input channels, scale levels) comes from
+    The architecture (network, encoder depth, input channels, scale levels) comes from
     the checkpoint's sidecar where it records the training config, and from
     `cfg` only where it does not; the caller's cfg stays in charge of the
     inference-side settings (size, compute dtype, depth range). The state
     dict loads strictly, so a checkpoint of another network raises."""
     device = resolve_device(device)
     arch = sidecar_config(checkpoint_path) or cfg
-    model = Model.create(
-        depth=arch.encoder_depth, in_channels=arch.in_channels, scale_levels=arch.scale_levels, device="cpu"
-    )
+    model = create_model(arch, device="cpu")
     model.load_state_dict(_checkpoint_state_dict(checkpoint_path, model))
     return model.to(device).eval()
 
 
-def make_infer_fn(model: Model, compute_dtype: str = "float32") -> Callable:
+def make_infer_fn(model: torch.nn.Module, compute_dtype: str = "float32") -> Callable:
     """Batched disparity inference: x (N,H,W,C) in [0,1], a tensor or an
     array -> fp32 disparity (N,H,W) at the finest scale, on the model's
     device.
@@ -86,14 +84,13 @@ def make_infer_fn(model: Model, compute_dtype: str = "float32") -> Callable:
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    net = copy.deepcopy(model).eval().to(dtype)
+    net = copy.deepcopy(model.depth_network()).eval().to(dtype)
     device = next(net.parameters()).device
 
     def infer(x) -> torch.Tensor:
         with torch.inference_mode():
             x = torch.as_tensor(x).to(device=device, dtype=dtype)
-            disparities = net.depth_decoder(net.encoder(x.permute(0, 3, 1, 2)))
-            return disparities[-1][:, 0].float()
+            return net(x.permute(0, 3, 1, 2))[-1][:, 0].float()
 
     return infer
 

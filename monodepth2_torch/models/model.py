@@ -22,7 +22,22 @@ from .pose_decoder import PoseDecoder
 from .resnet import ResNetEncoder
 
 
+class DepthNetwork(nn.Module):
+    """The encoder and the depth decoder of a Model as one module: images
+    (N,C,H,W) -> disparities coarse → fine, each (N,1,h,w)."""
+
+    def __init__(self, encoder: ResNetEncoder, depth_decoder: DepthDecoder):
+        super().__init__()
+        self.encoder = encoder
+        self.depth_decoder = depth_decoder
+
+    def forward(self, x: Tensor) -> list:
+        return self.depth_decoder(self.encoder(x))
+
+
 class Model(nn.Module):
+    architecture = "monodepth2"
+
     def __init__(self, encoder: ResNetEncoder, depth_decoder: DepthDecoder, pose_decoder: PoseDecoder):
         super().__init__()
         self.encoder = encoder
@@ -52,6 +67,11 @@ class Model(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Re-draw every weight from `generator` and reset the BN statistics."""
         reset_parameters(self, generator)
+
+    def depth_network(self) -> nn.Module:
+        """The depth network alone (sharing this model's modules): images
+        (N,C,H,W) -> disparities coarse → fine, each (N,1,h,w)."""
+        return DepthNetwork(self.encoder, self.depth_decoder)
 
     def forward(self, frames: Tensor, source_ids: Sequence[int] = (0, 2), target_id: int = 1):
         """frames (N,L,H,W,C) -> (disparities coarse → fine, each (N,h,w,1);

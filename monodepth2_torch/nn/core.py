@@ -255,10 +255,29 @@ def upsample_bilinear(
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
 
 
+@torch.no_grad()
+def _reset_torch_layer(m: nn.Module, generator: torch.Generator) -> None:
+    """torch's own layers in the port's rule: a `Conv3d` Glorot-uniform as
+    `Conv` is (drawn on the CPU from `generator`, whatever device the
+    weight is on), its bias zero; a `GroupNorm` at scale 1, shift 0."""
+    if isinstance(m, nn.Conv3d):
+        fans = m.weight[0, 0].numel() * (m.in_channels // m.groups + m.out_channels)
+        limit = math.sqrt(6.0 / fans)
+        m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * (2 * limit) - limit)
+        if m.bias is not None:
+            m.bias.zero_()
+    else:
+        nn.init.ones_(m.weight)
+        nn.init.zeros_(m.bias)
+
+
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialize the submodules of `module` from `generator`: each one
-    whose class defines `reset_parameters(generator)`, children before their
-    parents, so a parent's own rule (PoseDecoder's tz_init bias) lands last."""
+    whose class defines `reset_parameters(generator)`, and torch's `Conv3d`
+    and `GroupNorm` (`_reset_torch_layer`), children before their parents,
+    so a parent's own rule (PoseDecoder's tz_init bias) lands last."""
     for m in reversed(list(module.modules())[1:]):
-        if "reset_parameters" in type(m).__dict__:
+        if isinstance(m, (nn.Conv3d, nn.GroupNorm)):
+            _reset_torch_layer(m, generator)
+        elif "reset_parameters" in type(m).__dict__:
             m.reset_parameters(generator)

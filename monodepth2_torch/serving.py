@@ -40,7 +40,7 @@ class InferenceModule(nn.Module):
     """x (N, H, W, C) float32 in [0, 1] -> {"disparity": (N, H, W, 1) sigmoid
     output at the finest scale, "depth": disparity_to_depth of it}, both fp32.
 
-    Holds an eval-mode copy of the model's encoder and depth decoder, in
+    Holds an eval-mode copy of the model's depth network, in
     bf16 when `compute_dtype` is "bfloat16" (params and BN running stats
     cast, as the JAX package's cast_tree does; the geometry stays fp32).
     Callers enter `torch.inference_mode()` themselves."""
@@ -50,14 +50,13 @@ class InferenceModule(nn.Module):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
         self.dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-        self.encoder = copy.deepcopy(model.encoder).to(self.dtype)
-        self.depth_decoder = copy.deepcopy(model.depth_decoder).to(self.dtype)
+        self.depth_net = copy.deepcopy(model.depth_network()).to(self.dtype)
         self.min_depth, self.max_depth = float(min_depth), float(max_depth)
         self.eval()
 
     def forward(self, x: torch.Tensor) -> dict:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        disp = self.depth_decoder(self.encoder(x))[-1].permute(0, 2, 3, 1).float()
+        disp = self.depth_net(x)[-1].permute(0, 2, 3, 1).float()
         return {"disparity": disp, "depth": disparity_to_depth(disp, self.min_depth, self.max_depth)}
 
 
@@ -91,6 +90,7 @@ def export_inference(model: nn.Module, cfg, path: str, batch_size: Optional[int]
         "min_depth": cfg.min_depth,
         "max_depth": cfg.max_depth,
         "platforms": [device.type],
+        "architecture": cfg.architecture,
         "encoder_depth": cfg.encoder_depth,
         "compute_dtype": cfg.compute_dtype,
     }

@@ -136,7 +136,7 @@ def run_fit(args, mesh) -> dict:
 
 
 def run_steps(args, mesh) -> dict:
-    from ..models import Model
+    from ..models import create_model
     from ..parallel import (
         make_parallel_scanned_train_step,
         make_parallel_train_step,
@@ -151,8 +151,7 @@ def run_steps(args, mesh) -> dict:
     ctx = TrainContext.create(inputs["K"], cfg.width, cfg.height, dtype=dtype, device=mesh.device)
 
     def fresh():
-        model = Model.create(depth=cfg.encoder_depth, in_channels=cfg.in_channels, device=mesh.device)
-        state = create_train_state(model, cfg)
+        state = create_train_state(create_model(cfg, device=mesh.device), cfg)
         state.model.load_state_dict(inputs["state_dict"])
         return state
 

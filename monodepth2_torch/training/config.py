@@ -5,6 +5,11 @@ scanned step (a CUDA graph replayed that many times a call on the card),
 `remat` recomputes the network's activations in the backward
 (torch.utils.checkpoint), and `debug_nans` runs the steps eagerly and checks
 each loss on the host (training/state.py, training/loop.py).
+
+`architecture` is the port's own field: "monodepth2" (the default, the JAX
+package's only network) or "packnet01" (models/packnet.py). `to_json`
+leaves it out at its default, so a ResNet configuration's JSON, and a
+checkpoint's sidecar, stay in the JAX package's schema.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from ..device import resolve_device
 from ..ops.geometry import pixel_grid
 
 
+ARCHITECTURES = ("monodepth2", "packnet01")
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     # geometry / loss (reference defaults, src/Monodepth.jl:33-42,103-107)
@@ -34,10 +42,12 @@ class TrainConfig:
     target_id: int = 1
     source_ids: Tuple[int, ...] = (0, 2)
 
-    # resolution (width, height) and model
+    # resolution (width, height) and model; `architecture` picks the network
+    # (models.create_model), `encoder_depth` the ResNet of "monodepth2"
     target_size: Tuple[int, int] = (416, 128)
     in_channels: int = 1
     encoder_depth: int = 18
+    architecture: str = "monodepth2"
     scale_levels: Tuple[int, ...] = (2, 3, 4, 5)
 
     # optimization (reference: ADAM 1e-4, batch 4, 20 epochs)
@@ -112,6 +122,8 @@ class TrainConfig:
     save_dir: str = "models"
 
     def __post_init__(self):
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture {self.architecture!r} is none of {ARCHITECTURES}")
         w, h = self.target_size
         if w % 32 or h % 32:
             raise ValueError(
@@ -134,7 +146,10 @@ class TrainConfig:
         return self.target_size[1]
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        if d["architecture"] == ARCHITECTURES[0]:
+            del d["architecture"]
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(s: str) -> "TrainConfig":

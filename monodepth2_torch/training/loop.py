@@ -26,7 +26,7 @@ import torch.distributed as dist
 
 from ..data import DataLoader, device_prefetch
 from ..device import resolve_device
-from ..models import Model
+from ..models import create_model
 from ..parallel import Mesh, PerHostSampler, make_parallel_scanned_train_step, make_parallel_train_step
 from ..utils.profiler import span
 from ..utils.viz import save_disparity, save_warped
@@ -154,13 +154,7 @@ def fit(
     dtype = torch.get_default_dtype()
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     ctx = TrainContext.create(np.asarray(K), cfg.width, cfg.height, dtype=dtype, device=device)
-    model = Model.create(
-        depth=cfg.encoder_depth,
-        in_channels=cfg.in_channels,
-        scale_levels=cfg.scale_levels,
-        pose_tz_init=cfg.pose_tz_init,
-        device=device,
-    )
+    model = create_model(cfg, device=device)
     state = create_train_state(model, cfg)
 
     start_epoch = 0
