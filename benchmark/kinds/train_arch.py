@@ -9,22 +9,44 @@ float32 reference come from the architecture's reference module,
 reference network, with the program's state-dict names and `set_fp8`) and
 its `fill_weights` (which draws the weights of its own layers from the
 seed). The feed, the window, the traced segment and the comparison with
-the reference are kind `train`'s.
+the reference are kind `train`'s, with one number more where the cell's
+limits file lists it: `replay_loss_climb`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import math
+import statistics
 
 import numpy as np
 import torch
 
 from .. import inputs
 from ..reference import train as ref_train
+from ..result import Check
 from . import train
 
 REFERENCES = {"packnet01": "packnet"}
+# the first update whose loss `replay_loss_climb` reads (0-based): update 4's
+# loss is taken at the program's state after update 3, from which the
+# reference follows, so update 5's is the first to see a replayed update
+CLIMB_FROM = 4
+
+
+def replay_loss_climb(program: list, reference: list) -> float:
+    """The median over updates 5 to the call's last of the program's loss
+    less the reference's, over the reference's, the reference following the
+    call from the program's state after update 3 (kind `train`'s
+    `Session.reference`). Sound replays drift from float32's either way,
+    far at a step or two; replays that climb the loss (a flipped sign) read
+    above zero at most steps. Infinite where a loss is not finite or the
+    two sides count different updates."""
+    gaps = [(p - r) / abs(r) for p, r in zip(program[CLIMB_FROM:], reference[CLIMB_FROM:])]
+    if len(program) != len(reference) or not gaps or not all(map(math.isfinite, gaps)):
+        return float("inf")
+    return statistics.median(gaps)
 
 
 def reference_module(config: dict):
@@ -81,6 +103,12 @@ class Session(train.Session):
                     p.copy_(params[n])
         return model.set_fp8(fp8)
 
+    def compare(self, side: dict, ref: dict) -> dict:
+        """Kind `train`'s numbers and `replay_loss_climb`."""
+        out = super().compare(side, ref)
+        out["replay_loss_climb"] = replay_loss_climb(side["losses"], ref["losses"])
+        return out
+
 
 @contextlib.contextmanager
 def sessions():
@@ -95,6 +123,11 @@ def sessions():
 
 def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, started: float, limits: dict,
         plant=None):
-    """Kind `train`'s run (`train.run`) with this kind's session."""
+    """Kind `train`'s run (`train.run`) with this kind's session, and
+    `replay_loss_climb` checked where the limits list it."""
     with sessions():
-        return train.run(cell, seed, seconds, trace, device, started, limits, plant=plant)
+        outcome = train.run(cell, seed, seconds, trace, device, started, limits, plant=plant)
+    if "replay_loss_climb" in limits:
+        climb = replay_loss_climb(outcome.notes["losses_program"], outcome.notes["losses_reference"])
+        outcome.checks.append(Check("replay_loss_climb", climb, float(limits["replay_loss_climb"])))
+    return outcome

@@ -39,7 +39,25 @@ def test_a_cpu_run_is_correct_unless_the_path_is_broken(fault):
     assert code == 0 and text is not None
     out = json.loads(text)
     assert out["correct"] is (fault is None), out["checks"]
+    assert set(out["checks"]) == set(json.loads((ROOT / "benchmark" / "limits" / f"{CELL}.json").read_text()))
     assert set(out["metrics"]) == {"train_img_per_s", "setup_s"}
+
+
+def test_replay_loss_climb_reads_the_median_gap_after_update_4():
+    reference = [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4]
+    same = list(reference)
+    assert train_arch.replay_loss_climb(same, reference) == 0.0
+    # one step far off either way moves the median little; climbing at most
+    # of the steps reads as the climb
+    one_off = [1.0, 0.9, 0.8, 0.7, 0.9, 0.5, 0.4]
+    assert train_arch.replay_loss_climb(one_off, reference) == 0.0
+    climbing = [1.0, 0.9, 0.8, 0.7, 0.66, 0.6, 0.5]
+    assert abs(train_arch.replay_loss_climb(climbing, reference) - 0.2) < 1e-12
+    # update 4's loss is at the state the reference starts from: not read
+    assert train_arch.replay_loss_climb([1.0, 0.9, 0.8, 9.0, 0.6, 0.5, 0.4], reference) == 0.0
+    assert train_arch.replay_loss_climb(climbing[:-1], reference) == float("inf")  # counts differ
+    assert train_arch.replay_loss_climb([*climbing[:-1], float("nan")], reference) == float("inf")
+    assert train_arch.replay_loss_climb(reference[:4], reference[:4]) == float("inf")  # no replay to read
 
 
 def test_the_kinds_session_stands_in_only_inside():
@@ -52,9 +70,9 @@ def test_the_kinds_session_stands_in_only_inside():
 
 
 # bf16 at batch 4 moves a row's gradient as far as a half batch that keeps
-# its rows does, and a sign flipped in the replays reads within the sound
-# runs' spread, so neither is compared (PERF.md)
-UPPER = ("control", "half_batch", "unchanged")
+# its rows does, so that fault is not compared (PERF.md); a sign flipped in
+# the replays climbs the loss (`replay_loss_climb`)
+UPPER = ("control", "half_batch", "unchanged", "flipped_replays")
 
 
 @pytest.mark.gpu

@@ -16,8 +16,10 @@ wall time:
            memory, spills; beside it the dynamic shared memory of K3's
            blocks at 128×416
   kernels  the three kernels against their plain versions at the main-path
-           shape (32 images of 128×416) for C = 1 and 3, on scattered and
-           near-identity uv with exact-border and out-of-range points, and
+           shape (32 images of 128×416) for C = 1 and 3 and at the PackNet
+           cell's (benchmark/configs/kitti640_packnet01_b4.json: 2 sources
+           × 4 scales × batch 4 = 32 RGB images of 192×640), on scattered
+           and near-identity uv with exact-border and out-of-range points, and
            on K1/K2's ragged and unaligned cases, for C = 1, 2 and 3: an odd
            P that is not a multiple of the 64 points a warp takes, a tiny
            3×37×53 image, and uv and g as contiguous views one point into a
@@ -34,9 +36,10 @@ wall time:
   project  the projection's kernels (project_fwd; project_bwd, whose launch
            enqueues project_bwd_kernel and project_bwd_reduce_kernel)
            against their plain twins at the main path's shape for one
-           source (16 items of 128×416 points, tools.project_bench's
-           inputs: a point behind the camera and one at c_z = 1e-2 in every
-           item), K shared and per item: uv within 1e-6 abs, d_points
+           source (16 items of 128×416 points) and at the PackNet cell's
+           (16 items of 192×640 points), tools.project_bench's inputs (a
+           point behind the camera and one at c_z = 1e-2 in every item), K
+           shared and per item: uv within 1e-6 abs, d_points
            within 1e-5 rel + 1e-6 abs, dR and dt within 1e-5 relative
            Frobenius (tests/test_torch_cuda.py's), a second backward the
            same bits, one launch of each wrapper a call
@@ -224,6 +227,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # main-path shape: Src·S·N = 2 sources × 4 scales × batch 4 warped images
 WIDTH, HEIGHT, BATCH = 416, 128, 4
 N_WARP = 2 * 4 * BATCH
+# the PackNet cell's frames (benchmark/configs/kitti640_packnet01_b4.json):
+# 640×192 RGB at the same batch, sources and scales, so N_WARP images a warp
+PACKNET_WIDTH, PACKNET_HEIGHT, PACKNET_C = 640, 192, 3
 # fp32 operations per point, counted from the formula: coordinates (scale,
 # clamp, floor, weights) once per point; the 4-tap lerp per channel; the
 # coordinate VJP adds the two slopes and the g-weighted sums; the image VJP
@@ -1481,15 +1487,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     P = HEIGHT * WIDTH
     errs = {}
-    for c in (1, 3):
-        img = torch.rand((N_WARP, HEIGHT, WIDTH, c), generator=gen).cuda()
-        g = torch.randn((N_WARP, P, c), generator=gen).cuda()
+    for h, w, c in ((HEIGHT, WIDTH, 1), (HEIGHT, WIDTH, 3), (PACKNET_HEIGHT, PACKNET_WIDTH, PACKNET_C)):
+        img = torch.rand((N_WARP, h, w, c), generator=gen).cuda()
+        g = torch.randn((N_WARP, h * w, c), generator=gen).cuda()
         for scattered in (True, False):
-            uv = warp_kernel_bench.make_uv(N_WARP, HEIGHT, WIDTH, gen, scattered).cuda()
-            errs[(c, scattered)] = compare_kernels(torch, GS, img, uv, g)
-            fe, be, ie = errs[(c, scattered)]
+            uv = warp_kernel_bench.make_uv(N_WARP, h, w, gen, scattered).cuda()
+            errs[(h, w, c, scattered)] = compare_kernels(torch, GS, img, uv, g)
+            fe, be, ie = errs[(h, w, c, scattered)]
             emit("kernels", C=c, uv="scattered" if scattered else "near-identity",
-                 shape=[N_WARP, HEIGHT, WIDTH, c], fwd_max_abs_err=fe, bwd_uv_max_abs_err=be,
+                 shape=[N_WARP, h, w, c], fwd_max_abs_err=fe, bwd_uv_max_abs_err=be,
                  bwd_img_max_abs_err=ie, launches=counts(GS))
     # the cases K1/K2 take their scalar path for, all in the same launch
     for c in (1, 2, 3):
@@ -1524,15 +1530,17 @@ def main() -> int:
             emit("kernels", kernel=GS.grid_sample_bwd_img.name, C=c, case=case, shape=list(img.shape),
                  points=uv.shape[1], **{f"bwd_img_{k}": v for k, v in checks.items()})
 
-    # ---- project: the projection's kernels against their plain twins at
-    # the main path's shape for one source (S·batch = 16 items of 128×416)
+    # ---- project: the projection's kernels against their plain twins for
+    # one source (S·batch = 16 items) at the main path's 128×416 and at the
+    # PackNet cell's 192×640
     n_proj = N_WARP // 2
     project_errs = []
-    for per_item_K in (False, True):
-        points, K, R, t, g = project_bench.make_inputs(n_proj, HEIGHT, WIDTH, dev, per_item_K)
-        errs_p = compare_project(torch, PG, points, K, R, t, g, WIDTH, HEIGHT)
-        project_errs.append(errs_p)
-        emit("project", K="per item" if per_item_K else "shared", shape=[n_proj, P], **errs_p)
+    for h, w in ((HEIGHT, WIDTH), (PACKNET_HEIGHT, PACKNET_WIDTH)):
+        for per_item_K in (False, True):
+            points, K, R, t, g = project_bench.make_inputs(n_proj, h, w, dev, per_item_K)
+            errs_p = compare_project(torch, PG, points, K, R, t, g, w, h)
+            project_errs.append(errs_p)
+            emit("project", K="per item" if per_item_K else "shared", shape=[n_proj, h * w], **errs_p)
 
     # ---- autograd: the op with both gradients, through all three kernels
     img = torch.rand((N_WARP, HEIGHT, WIDTH, 1), generator=gen).cuda()
