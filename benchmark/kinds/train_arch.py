@@ -18,7 +18,6 @@ from __future__ import annotations
 import contextlib
 import importlib
 import math
-import statistics
 
 import numpy as np
 import torch
@@ -36,17 +35,18 @@ CLIMB_FROM = 4
 
 
 def replay_loss_climb(program: list, reference: list) -> float:
-    """The median over updates 5 to the call's last of the program's loss
+    """The least, over updates 5 to the call's last, of the program's loss
     less the reference's, over the reference's, the reference following the
     call from the program's state after update 3 (kind `train`'s
-    `Session.reference`). Sound replays drift from float32's either way,
-    far at a step or two; replays that climb the loss (a flipped sign) read
-    above zero at most steps. Infinite where a loss is not finite or the
-    two sides count different updates."""
+    `Session.reference`). Sound bf16 replays drift from float32's either
+    way, by as much as a flipped sign climbs, so some update reads at or
+    below zero; replays that climb the loss (a flipped sign) read above
+    zero at every update. Infinite where a loss is not finite or the two
+    sides count different updates."""
     gaps = [(p - r) / abs(r) for p, r in zip(program[CLIMB_FROM:], reference[CLIMB_FROM:])]
     if len(program) != len(reference) or not gaps or not all(map(math.isfinite, gaps)):
         return float("inf")
-    return statistics.median(gaps)
+    return min(gaps)
 
 
 def reference_module(config: dict):

@@ -47,12 +47,11 @@ def test_replay_loss_climb_reads_the_median_gap_after_update_4():
     reference = [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4]
     same = list(reference)
     assert train_arch.replay_loss_climb(same, reference) == 0.0
-    # one step far off either way moves the median little; climbing at most
-    # of the steps reads as the climb
-    one_off = [1.0, 0.9, 0.8, 0.7, 0.9, 0.5, 0.4]
-    assert train_arch.replay_loss_climb(one_off, reference) == 0.0
+    # climbing at every replay reads as the least climb; one replay at or
+    # below the reference's loss reads as that replay's gap
     climbing = [1.0, 0.9, 0.8, 0.7, 0.66, 0.6, 0.5]
-    assert abs(train_arch.replay_loss_climb(climbing, reference) - 0.2) < 1e-12
+    assert abs(train_arch.replay_loss_climb(climbing, reference) - 0.1) < 1e-12
+    assert abs(train_arch.replay_loss_climb([*climbing[:5], 0.45, 0.5], reference) + 0.1) < 1e-12
     # update 4's loss is at the state the reference starts from: not read
     assert train_arch.replay_loss_climb([1.0, 0.9, 0.8, 9.0, 0.6, 0.5, 0.4], reference) == 0.0
     assert train_arch.replay_loss_climb(climbing[:-1], reference) == float("inf")  # counts differ
